@@ -1,0 +1,17 @@
+"""PyTorch + CUDA port of `gaddpg_tpu` for NVIDIA Hopper (H100).
+
+The layout mirrors the JAX package, so each module's counterpart sits at
+the same relative path. This package imports torch and numpy only, never
+JAX or anything of `gaddpg_tpu`.
+
+What is ported so far is the policy-serving path: a (B, 4, 1030) point
+state -> PointNet++ encoder -> Gaussian policy head
+(`agents.ddpg.make_select_action`, `deploy.runner.PolicyRunner`). Its
+four point-cloud kernels (furthest point sampling, ball query, and the
+two eval set-abstraction kernels) are hand-written CUDA C++ for sm_90a
+under `ops/csrc/`, built with nvcc at first use.
+
+Entry points default to `device="cuda"` and raise when no card is
+present; pass `device="cpu"` to run the plain PyTorch versions of the
+kernels instead.
+"""

@@ -1,0 +1,143 @@
+"""PointNet++ set-abstraction encoder (counterpart of gaddpg_tpu/models/pointnet.py).
+
+The reference `base_network` at model_scale=1
+(reference: core/networks.py:65-92):
+
+    SA1: npoint=32, radius=0.02, nsample=64,  mlp (in+3) ->  64 ->  64 -> 128
+    SA2: npoint=32, radius=0.04, nsample=128, mlp (128+3)-> 128 -> 128 -> 256
+    SA3: group-all,                mlp (256+3)-> 256 -> 256 -> 512
+    FC:  512 -> 1024 -> 512 (BatchNorm + ReLU after each)
+
+Points stay channels-last, (B, N, C). Only the eval forward is ported:
+each SA level folds its BatchNorms (running statistics, eps 1e-5) into
+its Dense layers and runs as FPS -> ball query -> fused gather+MLP+max
+(kernels K1, K2, K3; the group-all level K4). `train=True`, which needs
+batch statistics, belongs to the learner and raises.
+"""
+
+from typing import Sequence
+
+import torch
+from torch import nn
+
+from gaddpg_tpu_torch.ops.sa import folded_sa_weights, mlp_maxpool, sa_gather_mlp
+from gaddpg_tpu_torch.ops.sampling import ball_query, furthest_point_sampling, gather_points
+
+BN_EPS = 1e-5
+
+
+def _no_train(train: bool):
+    if train:
+        raise NotImplementedError(
+            "train-mode PointNet++ (batch-statistics BatchNorm) is not ported yet"
+        )
+
+
+def batch_norm_eval(bn: nn.BatchNorm1d, x):
+    """Eval BatchNorm over the last axis with Flax's arithmetic:
+    (x - mean) * (rsqrt(var + eps) * scale) + bias."""
+    mul = torch.rsqrt(bn.running_var + bn.eps) * bn.weight
+    return (x - bn.running_mean) * mul + bn.bias
+
+
+def _batch_norm(c: int) -> nn.BatchNorm1d:
+    # Flax momentum 0.9 on the old value == torch momentum 0.1 on the new
+    return nn.BatchNorm1d(c, eps=BN_EPS, momentum=0.1)
+
+
+class SetAbstraction(nn.Module):
+    """One PointNet++ SA level: sample centres, group, shared MLP, max-pool.
+
+    `dense[i]` / `norms[i]` are the Flax module's Dense_i / BatchNorm_i."""
+
+    def __init__(self, npoint: int, radius: float, nsample: int, in_channels: int,
+                 mlp: Sequence[int], group_all: bool = False):
+        super().__init__()
+        if len(mlp) != 3:
+            raise ValueError("the fused SA kernels take exactly 3 layers")
+        self.npoint, self.radius, self.nsample = npoint, radius, nsample
+        self.group_all = group_all
+        widths = [in_channels, *mlp]
+        self.dense = nn.ModuleList(nn.Linear(a, b) for a, b in zip(widths, widths[1:]))
+        self.norms = nn.ModuleList(_batch_norm(c) for c in mlp)
+
+    def forward(self, xyz, feats, train: bool = False):
+        """xyz (B, N, 3); feats (B, N, C) -> (B, S, 3), (B, S, mlp[-1])."""
+        _no_train(train)
+        weights = folded_sa_weights(self.dense, self.norms)
+        full = torch.cat([xyz, feats], dim=-1)  # (B, N, 3 + C)
+        if self.group_all:
+            new_xyz = xyz.new_zeros((xyz.shape[0], 1, 3))
+            return new_xyz, mlp_maxpool(full, weights)
+        xyz = xyz.contiguous()
+        centers = furthest_point_sampling(xyz, self.npoint)
+        new_xyz = gather_points(xyz, centers)
+        group_idx = ball_query(new_xyz, xyz, self.radius, self.nsample)
+        # centre offsets for the gathered rows: xyz in cols 0:3, zero elsewhere
+        cpad = nn.functional.pad(new_xyz, (0, full.shape[-1] - 3))
+        return new_xyz, sa_gather_mlp(group_idx, full, cpad, weights)
+
+
+class PointNetEncoder(nn.Module):
+    """Full trunk: 3 SA levels + BN MLP head -> 512-d feature.
+
+    `sa[i]` is SetAbstraction_i; `fc[i]` / `fc_norms[i]` are Dense_i /
+    BatchNorm_i of the Flax module."""
+
+    def __init__(self, in_channels: int = 4, nclusters: int = 32, radius: float = 0.02,
+                 scale: int = 1):
+        super().__init__()
+        s = scale
+        self.sa = nn.ModuleList([
+            SetAbstraction(nclusters, radius, 64, in_channels + 3, (64 * s, 64 * s, 128 * s)),
+            SetAbstraction(32, 0.04, 128, 128 * s + 3, (128 * s, 128 * s, 256 * s)),
+            SetAbstraction(0, 0.0, 0, 256 * s + 3, (256 * s, 256 * s, 512 * s),
+                           group_all=True),
+        ])
+        self.fc = nn.ModuleList([nn.Linear(512 * s, 1024 * s), nn.Linear(1024 * s, 512 * s)])
+        self.fc_norms = nn.ModuleList([_batch_norm(1024 * s), _batch_norm(512 * s)])
+
+    def forward(self, pc, train: bool = False):
+        """pc (B, N, C): columns 0:3 xyz, rest extra channels -> (B, 512s)."""
+        _no_train(train)
+        xyz, feats = pc[..., :3], pc
+        for sa in self.sa:
+            xyz, feats = sa(xyz, feats)
+        h = feats[:, 0]
+        for fc, bn in zip(self.fc, self.fc_norms):
+            h = torch.relu(batch_norm_eval(bn, fc(h)))
+        return h
+
+
+class PointNetFeature(nn.Module):
+    """Policy + value encoders with the reference's input slicing.
+
+    The point state is (B, 4, 1030): channel 3 flags the 6 hand anchor
+    points, which are the first 6 points
+    (reference: env/panda_scene.py:1195-1200). Both encoders drop them;
+    the policy encoder sees 4 channels (xyz + flag), the value encoder 4 +
+    the 6-d action tiled over the points (reference: core/networks.py:232-248).
+    """
+
+    def __init__(self, policy_in: int = 4, value_in: int = 10, nclusters: int = 32,
+                 radius: float = 0.02, scale: int = 1, num_hand_points: int = 6):
+        super().__init__()
+        self.policy_in, self.value_in = policy_in, value_in
+        self.num_hand_points = num_hand_points
+        self.encoder = PointNetEncoder(policy_in, nclusters, radius, scale)
+        self.value_encoder = PointNetEncoder(value_in, nclusters, radius, scale)
+
+    def _prep(self, point_state, channels):
+        # (B, C, N) -> drop hand anchor points -> (B, N', C_keep)
+        return point_state[:, :channels, self.num_hand_points:].transpose(1, 2)
+
+    def forward(self, point_state, action=None, value: bool = False, train: bool = False):
+        """point_state (B, 4, 1030); action (B, 6) for the value path."""
+        _no_train(train)
+        if value:
+            pc = point_state
+            if action is not None:
+                tiled = action[:, :, None].expand(*action.shape, point_state.shape[-1])
+                pc = torch.cat([pc, tiled], dim=1)
+            return self.value_encoder(self._prep(pc, self.value_in))
+        return self.encoder(self._prep(point_state, self.policy_in))

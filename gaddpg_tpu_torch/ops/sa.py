@@ -1,0 +1,161 @@
+"""Eval-mode set abstraction: BatchNorm folding and the fused SA kernels.
+
+Counterpart of `gaddpg_tpu/ops/pallas_sa.py`. In eval mode BatchNorm uses
+its running statistics, so it folds into the preceding Dense, and one SA
+level becomes gather -> 3x (Dense + ReLU) -> max-pool:
+
+- `sa_gather_mlp` (K3, `csrc/sa_gather_mlp.cu`): a grouped level; the
+  JAX function handles one cloud and is vmapped, here the batch is the
+  leading axis.
+- `mlp_maxpool` (K4, `csrc/mlp_maxpool.cu`): the group-all level.
+
+Weights are `((w1, b1), (w2, b2), (w3, b3))` with w_i of shape
+(C_{i-1}, C_i), the Flax kernel layout. A CPU tensor runs the plain
+version (`*_reference`), a CUDA tensor launches the kernel or raises.
+Each wrapper counts its kernel launches in its `launches` attribute.
+"""
+
+import torch
+
+from gaddpg_tpu_torch.ops import build
+
+
+def fold_bn(kernel, bias, scale, bn_bias, mean, var, eps: float = 1e-5):
+    """Fold an eval-mode BatchNorm into the preceding Dense.
+
+    y = ((x @ W + b) - mean) / sqrt(var + eps) * scale + bn_bias
+      =  x @ (W * s) + ((b - mean) * s + bn_bias),  s = scale / sqrt(var+eps)
+
+    `kernel` is (in, out), as in Flax."""
+    s = scale / torch.sqrt(var + eps)
+    return kernel * s[None, :], (bias - mean) * s + bn_bias
+
+
+def folded_sa_weights(dense, norms):
+    """BN-folded ((w, b),) * len(dense), w contiguous (in, out), for an SA
+    level's nn.Linear layers `dense` and nn.BatchNorm1d layers `norms`
+    (running statistics)."""
+    out = []
+    for d, bn in zip(dense, norms):
+        w, b = fold_bn(d.weight.t(), d.bias, bn.weight, bn.bias,
+                       bn.running_mean, bn.running_var, bn.eps)
+        out.append((w.contiguous(), b))
+    return tuple(out)
+
+
+def _mlp_relu(h, weights):
+    for w, b in weights:
+        h = torch.relu(h @ w + b)
+    return h
+
+
+def sa_gather_mlp_reference(group_idx, full, center_pad, weights):
+    """Plain PyTorch K3: group_idx (B, S, K) int32, full (B, N, C_in),
+    center_pad (B, S, C_in) -> pooled (B, S, C3)."""
+    b, s, k = group_idx.shape
+    rows = torch.gather(
+        full, 1, group_idx.reshape(b, s * k, 1).long().expand(-1, -1, full.shape[-1])
+    ).reshape(b, s, k, -1)
+    return _mlp_relu(rows - center_pad[:, :, None, :], weights).amax(dim=2)
+
+
+def mlp_maxpool_reference(full, weights):
+    """Plain PyTorch K4: full (B, N, C_in) -> (B, 1, C3)."""
+    return _mlp_relu(full, weights).amax(dim=1, keepdim=True)
+
+
+def _check_widths(name, weights, cin):
+    if len(weights) != 3:
+        raise ValueError(f"{name}: expected 3 (w, b) layers, got {len(weights)}")
+    widths = [cin]
+    for w, b in weights:
+        if (w.dtype != torch.float32 or b.dtype != torch.float32 or w.dim() != 2
+                or w.shape[0] != widths[-1] or b.shape != (w.shape[1],)):
+            raise ValueError(
+                f"{name}: layer ({tuple(w.shape)}, {tuple(b.shape)}) does not "
+                f"follow width {widths[-1]} or is not float32"
+            )
+        widths.append(w.shape[1])
+    return widths[1:]
+
+
+def _check_kernel_layout(name, weights, rows, cin, c1, c2, c3):
+    """What the CUDA kernels need beyond the plain version: the tile fits
+    in shared memory, and every layer's w can be read as float4 rows
+    (width a multiple of 4, 16-byte aligned)."""
+    floats = rows * max(cin, c2) + rows * c1 + c3
+    if 4 * floats > build.MAX_SMEM_BYTES:
+        raise ValueError(
+            f"{name}: a {rows}-row tile at widths {cin}->{c1}->{c2}->{c3} needs "
+            f"{4 * floats} bytes of shared memory, more than {build.MAX_SMEM_BYTES}"
+        )
+    for w, _ in weights:
+        if w.shape[1] % 4 or w.data_ptr() % 16:
+            raise ValueError(
+                f"{name}: layer width {w.shape[1]} must be a multiple of 4 and its "
+                "weights 16-byte aligned"
+            )
+
+
+def sa_gather_mlp(group_idx, full, center_pad, weights):
+    """Fused eval SA level: gather K rows of `full` (B, N, C_in) per centre
+    by `group_idx` (B, S, K) int32, subtract `center_pad` (B, S, C_in),
+    3x (folded Dense + ReLU), max over K -> (B, S, C3) float32.
+
+    Indices must lie in [0, N) (ball query's output does). CPU tensors:
+    `sa_gather_mlp_reference`. CUDA tensors: the K3 kernel."""
+    b, s, k = group_idx.shape
+    n, cin = full.shape[1], full.shape[2]
+    if (group_idx.dtype != torch.int32 or full.dtype != torch.float32
+            or center_pad.dtype != torch.float32 or full.shape[0] != b
+            or center_pad.shape != (b, s, cin)):
+        raise ValueError(
+            f"sa_gather_mlp: group_idx {group_idx.dtype} {tuple(group_idx.shape)}, "
+            f"full {full.dtype} {tuple(full.shape)}, center_pad "
+            f"{center_pad.dtype} {tuple(center_pad.shape)}"
+        )
+    c1, c2, c3 = _check_widths("sa_gather_mlp", weights, cin)
+    dev = build.kernel_device("sa_gather_mlp", group_idx, full, center_pad,
+                              *(t for layer in weights for t in layer))
+    if dev.type == "cpu":
+        return sa_gather_mlp_reference(group_idx, full, center_pad, weights)
+    _check_kernel_layout("sa_gather_mlp", weights, k, cin, c1, c2, c3)
+    out = torch.empty((b, s, c3), dtype=torch.float32, device=dev)
+    build.launch(
+        "sa_gather_mlp", dev, group_idx.data_ptr(), full.data_ptr(),
+        center_pad.data_ptr(), *(t.data_ptr() for layer in weights for t in layer),
+        out.data_ptr(), b, s, k, n, cin, c1, c2, c3,
+    )
+    sa_gather_mlp.launches += 1
+    return out
+
+
+sa_gather_mlp.launches = 0
+
+
+def mlp_maxpool(full, weights):
+    """Fused eval group-all SA: full (B, N, C_in) float32 -> 3x (folded
+    Dense + ReLU) -> max over N -> (B, 1, C3).
+
+    CPU tensor: `mlp_maxpool_reference`. CUDA tensor: the K4 kernel."""
+    if full.dtype != torch.float32 or full.dim() != 3:
+        raise ValueError(f"mlp_maxpool: full {full.dtype} {tuple(full.shape)}")
+    b, n, cin = full.shape
+    c1, c2, c3 = _check_widths("mlp_maxpool", weights, cin)
+    dev = build.kernel_device("mlp_maxpool", full,
+                              *(t for layer in weights for t in layer))
+    if dev.type == "cpu":
+        return mlp_maxpool_reference(full, weights)
+    _check_kernel_layout("mlp_maxpool", weights, n, cin, c1, c2, c3)
+    out = torch.empty((b, 1, c3), dtype=torch.float32, device=dev)
+    build.launch(
+        "mlp_maxpool", dev, full.data_ptr(),
+        *(t.data_ptr() for layer in weights for t in layer),
+        out.data_ptr(), b, n, cin, c1, c2, c3,
+    )
+    mlp_maxpool.launches += 1
+    return out
+
+
+mlp_maxpool.launches = 0
+
