@@ -4,11 +4,19 @@
     python3 chip_smoke.py
 
 Phases, each of which must pass:
-  1. build the four CUDA kernels (K1 FPS, K2 ball query, K3 eval SA
-     gather+MLP, K4 eval group-all SA) from gaddpg_tpu_torch/ops/csrc;
-  2. hold each kernel against its plain PyTorch version on the card at
-     the serving shapes, batches 8 and 256: indices exactly equal, floats
-     within rtol = atol = 1e-4 (fp32, different summation order);
+  1. build the CUDA kernels of K1 FPS, K2 ball query, K3 eval SA
+     gather+MLP, K4 eval group-all SA and the train SA stats passes of K5
+     and K6 (one source) from gaddpg_tpu_torch/ops/csrc;
+  2. hold each kernel against its plain PyTorch version on the card,
+     batches 8 and 256: K1-K4 at the serving shapes (indices exactly
+     equal, floats within rtol = atol = 1e-4: fp32, different summation
+     order); K5/K6 (`sa_train_fused`, `groupall_train_fused`) at the
+     learner's shapes (policy SA1, value SA1, SA2, SA3): pooled output and
+     batch statistics within 1e-4, the gradient of sum(pooled^2) through
+     the wrapper within 1e-3 of each leaf's largest (the Dense biases,
+     whose exact gradient is 0 under a batch-stat BatchNorm, within 1e-3
+     of the call's largest gradient of 0 on both sides), and two calls
+     giving bit-identical statistics;
   3. drive the serving path, `make_select_action` on a full-width agent
      state from a seeded generator, at batch 1, 8 and 1024, with the
      launch counters set to 0 just before and read just after (each call
@@ -17,15 +25,31 @@ Phases, each of which must pass:
      the FPS / ball-query indices, which must be equal);
   4. drive `PolicyRunner` on synthetic depth frames through APPROACH ->
      RETRACT -> DONE;
-  5. time each kernel and its plain version at the serving shapes
+  5. time each serving kernel and its plain version at the serving shapes
      (CUDA events, median), select_action per batch (host clock) and its
      device busy time and top device activities (torch.profiler).
-     Phase 4 reports the runner's per-request latency.
+     Phase 4 reports the runner's per-request latency;
+  6. drive the learner: `make_ddpg_update` and `make_bc_update` on a
+     full-width agent state at batch 256 x 1030 points (bench.py's
+     batch), one warm-up and three timed updates each, the counters set
+     to 0 before and read after every update (a DDPG update runs five
+     train-mode encoder forwards: K1 10x, K2 10x, K5 10x, K6 5x, with
+     their final forwards K3 10x, K4 5x; a BC update a fifth of that),
+     every metric finite; two DDPG updates at batch 8 on the card and on
+     the CPU from the same state (with carried Adam moments), a batch
+     whose actor term is live, and the same smoothing draws: metrics of
+     both updates within 1e-3, and after the first the running
+     statistics, every parameter's and target's move (the bounds of
+     tests/test_torch_learner.py) and the update step; update times (host
+     clock), device busy time, idle share
+     and where the device time goes (torch.profiler), peak memory, and
+     K5/K6 per level against their plain versions and bounds.
 
 Prints the card's name and power limit (nvidia-smi), then one JSON line
-with every kernel's numbers (launches: over the phase-3 calls; ms,
-plain_ms, bound_ms: summed over the kernel's levels in one forward at
-B=1024), then as the last line
+with every kernel's numbers (launches: K1-K4 over the phase-3 calls, K5/K6
+over the phase-6 updates; ms, plain_ms, bound_ms: K1-K4 summed over the
+kernel's levels in one forward at B=1024, K5/K6 over their levels in one
+policy-encoder train forward at B=256), then as the last line
 {"ok": true, "device": {...}}. Exits non-zero, printing no result, when
 no CUDA card is available or any phase fails.
 """
@@ -55,8 +79,18 @@ REPLACES = {
     "ball_query": "gaddpg_tpu/ops/pallas_kernels.py:166",
     "sa_gather_mlp": "gaddpg_tpu/ops/pallas_sa.py:120",
     "mlp_maxpool": "gaddpg_tpu/ops/pallas_sa.py:147",
+    "sa_train": "gaddpg_tpu/ops/pallas_sa_train.py:314",
+    "groupall_train": "gaddpg_tpu/ops/pallas_sa_train.py:443",
 }
-PER_CALL = {"fps": 2, "ball_query": 2, "sa_gather_mlp": 2, "mlp_maxpool": 1}
+SOURCES = {"sa_train": "sa_train_stats", "groupall_train": "sa_train_stats"}
+PER_CALL = {"fps": 2, "ball_query": 2, "sa_gather_mlp": 2, "mlp_maxpool": 1,
+            "sa_train": 0, "groupall_train": 0}
+# launches of one update: five train-mode encoder forwards (DDPG), one (BC)
+DDPG_PER_UPDATE = {"fps": 10, "ball_query": 10, "sa_gather_mlp": 10, "mlp_maxpool": 5,
+                   "sa_train": 10, "groupall_train": 5}
+BC_PER_UPDATE = {k: v // 5 for k, v in DDPG_PER_UPDATE.items()}
+TRAIN_BATCH, TRAIN_POINTS = 256, 1030  # bench.py's learner envelope
+TIMED_UPDATES = 3
 CHECK_BATCHES = (8, 256)      # kernels against their plain versions
 MAIN_BATCHES = (1, 8, 1024)   # one robot, entry(), bench.py's env count
 TIME_BATCHES = (1, 1024)      # kernel timings; the JSON line sums the last
@@ -131,12 +165,14 @@ def host_ms(fn, reps=20):
     return statistics.median(times)
 
 
-def device_profile(fn, calls=5, top=6):
-    """(device busy ms per call, [(name, ms per call), ...] of the `top`
-    device activities by time) of `fn` under torch.profiler. Busy is the
-    sum over device-side events (kernels, copies), each counted once; the
-    CPU ops that launched them are left out, since they would count the
-    same time again. 0 when the profiler saw no device."""
+def device_profile(fn, calls=5, ranges=()):
+    """(device busy ms per call, [(name, ms per call), ...] of every device
+    activity by time, {range: device ms per call}) of `fn` under
+    torch.profiler. Busy is the sum over device-side events (kernels,
+    copies), each counted once; the CPU ops that launched them are left
+    out, since they would count the same time again. `ranges` names
+    `record_function` ranges whose device time (the kernels launched
+    inside them) is reported. 0 when the profiler saw no device."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -146,10 +182,15 @@ def device_profile(fn, calls=5, top=6):
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
+    # a range's own device-side annotation would count its kernels twice
     rows = [(e.key, e.self_device_time_total / 1e3 / calls) for e in prof.key_averages()
-            if e.device_type != DeviceType.CPU]
+            if e.device_type != DeviceType.CPU and e.key not in ranges]
     rows = sorted((r for r in rows if r[1] > 0), key=lambda r: -r[1])
-    return sum(ms for _, ms in rows), rows[:top]
+    spans = {r: 0.0 for r in ranges}
+    for e in prof.events():  # the kernels launched inside each range
+        if e.name in spans and e.device_type == DeviceType.CPU:
+            spans[e.name] += e.device_time_total / 1e3 / calls
+    return sum(ms for _, ms in rows), rows, spans
 
 
 def bound_ms(nbytes, flops):
@@ -158,23 +199,73 @@ def bound_ms(nbytes, flops):
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
+def train_dense(level):
+    """((w (C_in, C_out), b, BN scale, BN bias),) * 3 of an SA level."""
+    return tuple((d.weight.t().contiguous(), d.bias, bn.weight, bn.bias)
+                 for d, bn in zip(level.dense, level.norms))
+
+
+def train_grads(fn, kernel, args):
+    """Gradients of sum(pooled^2) through `fn` for the float inputs
+    (full, cpad for a grouped level, the 12 parameters), from fresh
+    leaves."""
+    lead, dense = args[:-1], args[-1]
+    floats = [t for t in lead if t.is_floating_point()]
+    leaves = [t.detach().clone().requires_grad_()
+              for t in (*floats, *(t for layer in dense for t in layer))]
+    inputs, params = iter(leaves[:len(floats)]), leaves[len(floats):]
+    call = [next(inputs) if t.is_floating_point() else t for t in lead]
+    pooled, _ = fn(*call, tuple(tuple(params[4 * i: 4 * i + 4]) for i in range(3)))
+    return torch.autograd.grad((pooled * pooled).sum(), leaves)
+
+
+def train_work(kernel, args):
+    """(bytes, flops) the function of a train SA level needs on these
+    inputs: each input read once, the pooled output and statistics
+    written once, and each of the three Dense layers once per row. (The
+    kernels recompute layers 1..i-1 in stats pass i and run the layers
+    again in the final forward, 2.76x these FLOPs at SA2: a property of
+    their design, which the bound does not credit.)"""
+    f32 = 4
+    dense = args[-1]
+    widths = [w.shape for w, _, _, _ in dense]
+    macs = sum(a * b for a, b in widths)
+    pbytes = sum(t.numel() for layer in dense for t in layer) * f32
+    c3 = widths[-1][1]
+    stats = 2 * sum(b for _, b in widths) * f32
+    if kernel == "sa_train":
+        idx, full, cpad, _ = args
+        b, s, k = idx.shape
+        nbytes = idx.numel() * 4 + (full.numel() + cpad.numel() + b * s * c3) * f32
+        return nbytes + pbytes + stats, 2 * b * s * k * macs
+    full = args[0]
+    b, n, _ = full.shape
+    return (full.numel() + b * c3) * f32 + pbytes + stats, 2 * b * n * macs
+
+
 class Smoke:
     def __init__(self):
         from gaddpg_tpu_torch.agents import AgentConfig, create_agent_state
         from gaddpg_tpu_torch.geometry.gripper import HAND_FINGER_POINTS
-        from gaddpg_tpu_torch.ops import build, sa, sampling
+        from gaddpg_tpu_torch.ops import build, sa, sa_train, sampling
 
-        self.build, self.sa, self.sampling = build, sa, sampling
+        self.build, self.sa, self.sa_train, self.sampling = build, sa, sa_train, sampling
         self.hand_points = HAND_FINGER_POINTS
         self.wrappers = {
             "fps": sampling.furthest_point_sampling,
             "ball_query": sampling.ball_query,
             "sa_gather_mlp": sa.sa_gather_mlp,
             "mlp_maxpool": sa.mlp_maxpool,
+            "sa_train": sa_train.sa_train_fused,
+            "groupall_train": sa_train.groupall_train_fused,
         }
+        self.serving = ("fps", "ball_query", "sa_gather_mlp", "mlp_maxpool")
         self.cfg = AgentConfig()
         # the entry points at their default device="cuda", as a user calls them
         self.state = create_agent_state(self.cfg, generator=torch.Generator().manual_seed(0))
+        # the learner's own state: its updates leave the serving state alone
+        self.train_state = create_agent_state(self.cfg, TRAIN_POINTS,
+                                          generator=torch.Generator().manual_seed(1))
         self.device = self.state.device
         self.errors = {k: 0.0 for k in self.wrappers}
         self.launches = {}
@@ -194,7 +285,7 @@ class Smoke:
         enc = self.state.feat.encoder
         pc = point_state[:, :4, 6:].transpose(1, 2)
         xyz, feats = pc[..., :3].contiguous(), pc
-        calls = {k: [] for k in self.wrappers}
+        calls = {k: [] for k in self.serving}
         for (name, npoint, radius, nsample), level in zip(SA_LEVELS, enc.sa):
             weights = sa.folded_sa_weights(level.dense, level.norms)
             calls["fps"].append((name, (xyz, npoint)))
@@ -367,7 +458,7 @@ class Smoke:
         return full.numel() * f32 + wbytes + b * c3 * f32, 2 * b * n * macs
 
     def timings(self, select, inputs, gen):
-        totals = {k: {"ms": 0.0, "plain_ms": 0.0, "bytes": 0, "flops": 0} for k in self.wrappers}
+        totals = {k: {"ms": 0.0, "plain_ms": 0.0, "bytes": 0, "flops": 0} for k in self.serving}
         for batch in TIME_BATCHES:
             ps = synthetic_point_state(batch, gen, self.hand_points, self.device)
             for kernel, calls in self.level_inputs(ps).items():
@@ -390,15 +481,312 @@ class Smoke:
             ms = host_ms(call, reps=20 if batch < 256 else 10)
             log(f"[time] select_action B={batch:4d}: {ms:.3f} ms per call (host clock, "
                 f"synchronised), {ms / batch:.4f} ms per request")
-            busy, top = device_profile(call)
+            busy, rows, _ = device_profile(call)
             if busy == 0:
                 log(f"[profile] select_action B={batch:4d}: device time not measured "
                     "(the profiler saw no device activity)")
                 continue
             log(f"[profile] select_action B={batch:4d}: device busy {busy:.4f} ms per call, "
                 f"idle share {max(0.0, 1 - busy / ms):.3f} of the host-clock call")
-            for name, t in top:
+            for name, t in rows[:6]:
                 log(f"[profile]   {t:.4f} ms  {name[:100]}")
+        return totals
+
+    # -- K5/K6 at the learner's shapes -------------------------------------------
+    def train_level_inputs(self, point_state, action=None):
+        """[(label, kernel, args)] of one train-mode encoder forward (the
+        value encoder when `action` is given) at each level, computed with
+        the plain versions on the learner state's weights."""
+        sampling, sa_train = self.sampling, self.sa_train
+        feat = self.train_state.feat
+        if action is None:
+            tag, enc, pc = "policy", feat.encoder, feat._prep(point_state, feat.policy_in)
+        else:
+            tag, enc = "value", feat.value_encoder
+            tiled = action[:, :, None].expand(*action.shape, point_state.shape[-1])
+            pc = feat._prep(torch.cat([point_state, tiled], dim=1), feat.value_in)
+        xyz, feats = pc[..., :3].contiguous(), pc
+        calls = []
+        for (name, npoint, radius, nsample), level in zip(SA_LEVELS, enc.sa):
+            dense = train_dense(level)
+            new_xyz = sampling.gather_points(xyz, sampling.fps_reference(xyz, npoint))
+            idx = sampling.ball_query_reference(new_xyz, xyz, radius, nsample)
+            full = torch.cat([xyz, feats], dim=-1)
+            cpad = torch.nn.functional.pad(new_xyz, (0, full.shape[-1] - 3))
+            calls.append((f"{tag} {name}", "sa_train", (idx, full, cpad, dense)))
+            xyz, feats = new_xyz, sa_train.sa_train_reference(idx, full, cpad, dense)[0]
+        calls.append((f"{tag} SA3", "groupall_train",
+                      (torch.cat([xyz, feats], dim=-1), train_dense(enc.sa[2]))))
+        return calls
+
+    def train_reference(self, kernel):
+        return {"sa_train": self.sa_train.sa_train_reference,
+                "groupall_train": self.sa_train.groupall_train_reference}[kernel]
+
+    def train_calls(self, batch, gen):
+        """The policy encoder's three levels and the value encoder's SA1."""
+        ps = synthetic_point_state(batch, gen, self.hand_points, self.device)
+        action = torch.rand((batch, 6), generator=gen, device=self.device) * 0.1 - 0.05
+        with torch.no_grad():
+            value = [c for c in self.train_level_inputs(ps, action) if c[0] == "value SA1"]
+            return self.train_level_inputs(ps) + value
+
+    def check_train_kernels(self, gen):
+        for batch in CHECK_BATCHES:
+            for label, kernel, args in self.train_calls(batch, gen):
+                with torch.no_grad():
+                    got, stats = self.wrappers[kernel](*args)
+                    _, again = self.wrappers[kernel](*args)
+                    torch.cuda.synchronize()
+                    want, want_stats = self.train_reference(kernel)(*args)
+                torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+                err = (got - want).abs().max().item()
+                for mv, want_mv, mv2 in zip(stats, want_stats, again):
+                    for t, w, t2 in zip(mv, want_mv, mv2):
+                        torch.testing.assert_close(t, w, rtol=1e-4, atol=1e-4)
+                        err = max(err, (t - w).abs().max().item())
+                        if not torch.equal(t, t2):
+                            raise AssertionError(f"{kernel} {label} B={batch}: statistics "
+                                                 "differ between two calls")
+                # each leaf's gradient within 1e-3 of its own largest; the
+                # Dense biases feed a batch-stat BatchNorm, so their exact
+                # gradient is 0 and both sides hold only cancellation noise:
+                # each side within 1e-3 of the call's largest gradient of 0
+                got_g, want_g = (train_grads(fn, kernel, args) for fn in
+                                 (self.wrappers[kernel], self.train_reference(kernel)))
+                scale = max(w.abs().max().item() for w in want_g)
+                gerr = max((g - w).abs().max().item() for g, w in zip(got_g, want_g))
+                nin = len(got_g) - 12
+                for i, (g, w) in enumerate(zip(got_g, want_g)):
+                    if i >= nin and (i - nin) % 4 == 1:  # Dense bias
+                        zero = max(g.abs().max().item(), w.abs().max().item())
+                        if zero > 1e-3 * scale:
+                            raise AssertionError(f"{kernel} {label} B={batch}: Dense bias "
+                                                 f"{(i - nin) // 4} gradient {zero:.3e}, not 0")
+                        continue
+                    torch.testing.assert_close(g, w, rtol=1e-3,
+                                               atol=1e-3 * w.abs().max().item(), msg=f"leaf {i}")
+                self.errors[kernel] = max(self.errors[kernel], err)
+                log(f"[check] {kernel:14s} {label:10s} B={batch:4d} pooled+stats "
+                    f"max_abs_err={err:.3e}, grad max_abs_err={gerr:.3e} (largest grad "
+                    f"{scale:.3e}), "
+                    f"stats bit-identical over two calls ok")
+
+    # -- phase 6 ------------------------------------------------------------------
+    def learner_batch(self, batch, gen):
+        """bench.py's learner batch (bench.py:101-117): a 4 x 1030 point
+        state of N(0, 0.05) points with the 6 flagged anchors, all expert
+        rows with return 1, no reward, no terminal."""
+        d = self.device
+        ps = torch.randn((batch, 4, TRAIN_POINTS), generator=gen, device=d) * 0.05
+        ps[:, 3, :] = 0.0
+        ps[:, 3, :6] = 1.0
+        goal = torch.tensor([1.0, 0, 0, 0, 0, 0, 0.1], device=d).repeat(batch, 1)
+        ones, zeros = torch.ones(batch, device=d), torch.zeros(batch, device=d)
+        return {
+            "point_state": ps, "next_point_state": ps,
+            "action": torch.rand((batch, 6), generator=gen, device=d) * 0.1 - 0.05,
+            "expert_action": torch.rand((batch, 6), generator=gen, device=d) * 0.1 - 0.05,
+            "reward": zeros, "return": ones, "terminal": zeros,
+            "time": torch.full((batch,), 10.0, device=d), "goal": goal, "next_goal": goal,
+            "expert_flags": ones, "perturb_flags": zeros,
+        }
+
+    def learner(self, gen):
+        from gaddpg_tpu_torch.agents import make_bc_update, make_ddpg_update
+
+        ddpg, bc = make_ddpg_update(self.cfg), make_bc_update(self.cfg)
+        state, batch = self.train_state, self.learner_batch(TRAIN_BATCH, gen)
+        runs = (("ddpg", lambda: ddpg(state, batch, gen), DDPG_PER_UPDATE),
+                ("bc", lambda: bc(state, batch), BC_PER_UPDATE))
+        total = {k: 0 for k in self.wrappers}
+        times = {}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for name, update, per in runs:
+            times[name] = []
+            for i in range(1 + TIMED_UPDATES):  # the first warms up
+                self.reset_counts()
+                t0 = time.perf_counter()
+                metrics = update()
+                torch.cuda.synchronize()
+                ms = (time.perf_counter() - t0) * 1e3
+                counts = self.counts()
+                if counts != per:
+                    raise AssertionError(f"{name} update {i}: launches {counts}, expected {per}")
+                bad = [k for k, v in metrics.items() if not torch.isfinite(v).all()]
+                if bad:
+                    raise AssertionError(f"{name} update {i}: non-finite metrics {bad}")
+                for k in total:
+                    total[k] += counts[k]
+                if i:
+                    times[name].append(ms)
+                log(f"[learner] {name} update {i} B={TRAIN_BATCH}x{TRAIN_POINTS}: {ms:.3f} ms, "
+                    f"launches {counts}, " + ", ".join(
+                        f"{k} {float(v):.5g}" for k, v in metrics.items()))
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        self.launches["sa_train"] = total["sa_train"]
+        self.launches["groupall_train"] = total["groupall_train"]
+        log(f"[learner] launches over {1 + TIMED_UPDATES} DDPG + {1 + TIMED_UPDATES} BC "
+            f"updates: {total}")
+        for name, ts in times.items():
+            log(f"[time] {name} update B={TRAIN_BATCH}x{TRAIN_POINTS}: median "
+                f"{statistics.median(ts):.3f} ms (host clock, synchronised; "
+                f"min {min(ts):.3f}, max {max(ts):.3f}, n={len(ts)})")
+        log(f"[memory] learner peak allocated {peak:.3f} GiB")
+        for name, update, _ in runs:
+            self.profile_update(name, update, statistics.median(times[name]))
+        self.card_vs_cpu(gen)
+
+    def profile_update(self, name, update, host_ms):
+        busy, rows, spans = device_profile(update, calls=2,
+                                           ranges=(self.sa_train.BACKWARD_RANGE,))
+        if busy == 0:
+            log(f"[profile] {name} update: device time not measured "
+                "(the profiler saw no device activity)")
+            return
+        parts = {"K5/K6 stats passes": ("train_stats_kernel", "reduce_stats_kernel"),
+                 "K3/K4 final forwards": ("sa_gather_mlp_kernel", "mlp_maxpool_kernel"),
+                 "K1/K2": ("fps_kernel", "ball_query_kernel")}
+        split = {p: sum(ms for key, ms in rows if any(n in key for n in names))
+                 for p, names in parts.items()}
+        backward = spans.get(self.sa_train.BACKWARD_RANGE, 0.0)
+        log(f"[profile] {name} update: device busy {busy:.3f} ms per update, idle share "
+            f"{max(0.0, 1 - busy / host_ms):.3f} of the {host_ms:.3f} ms host-clock update")
+        for part, ms in split.items():
+            log(f"[profile]   {part}: {ms:.3f} ms")
+        log(f"[profile]   plain backward recompute of K5/K6 ({self.sa_train.BACKWARD_RANGE}): "
+            + (f"{backward:.3f} ms" if backward else "not measured"))
+        log(f"[profile]   rest (FC trunk, heads, losses, optimizers, copies): "
+            f"{busy - sum(split.values()) - backward:.3f} ms")
+        for key, ms in rows[:8]:
+            log(f"[profile]   {ms:.4f} ms  {key[:100]}")
+
+    def mixed_batch(self, batch, gen):
+        """The learner batch with every mask live: non-expert rows, rows
+        of return 0 (so the actor term has rows), rewards, terminals, a
+        perturbed row and one positive collide_future."""
+        out = self.learner_batch(batch, gen)
+        rows = torch.arange(batch, device=self.device)
+        out["expert_flags"] = (rows % 2 == 0).float()
+        out["return"] = (rows % 3 != 0).float()
+        out["reward"] = 0.5 * (rows % 4 == 1).float()
+        out["terminal"] = (rows % 4 == 3).float()
+        out["perturb_flags"] = (rows == batch - 4).float()
+        out["collide_future"] = (rows == 2).float()
+        return out
+
+    def card_vs_cpu(self, gen):
+        """Two DDPG updates at B=8 on the card and on the CPU from the same
+        state, batch and smoothing draws, with the Q2 hard copy and the
+        collision terms on. The state carries Adam moments from one
+        earlier CPU update: on Adam's first step every move is +-lr by
+        the gradient's sign, so the rounding of the gradients near 0
+        would decide moves. The first update (update_step 0) runs the
+        actor term; the second runs through the stepped parameters."""
+        from gaddpg_tpu_torch.agents import AgentConfig, create_agent_state, make_ddpg_update
+
+        cfg = AgentConfig(target_update_interval=1, collision_aux_weight=0.1,
+                          collision_demo_discount=0.5)
+        state_cpu = create_agent_state(cfg, generator=torch.Generator().manual_seed(2),
+                                       device="cpu")
+        update, update_cpu = make_ddpg_update(cfg), make_ddpg_update(cfg, device="cpu")
+        batches = [self.mixed_batch(8, gen) for _ in range(3)]
+        draws = [torch.rand((8, 6), generator=gen, device=self.device) for _ in range(3)]
+        cpu = lambda t: {k: v.cpu() for k, v in t.items()} if isinstance(t, dict) else t.cpu()
+        update_cpu(state_cpu, cpu(batches[0]), noise_draws=cpu(draws[0]))
+        state_cpu.update_step = 0
+        state, before = state_cpu.to(self.device), state_cpu.to("cpu")
+        err = 0.0
+        for i in (1, 2):
+            xyz = batches[i]["point_state"][:, :3, 6:].transpose(1, 2).contiguous()
+            idx = self.sampling.furthest_point_sampling(xyz, 32)
+            centers = self.sampling.gather_points(xyz, idx)
+            if not (torch.equal(idx.cpu(), self.sampling.furthest_point_sampling(xyz.cpu(), 32))
+                    and torch.equal(self.sampling.ball_query(centers, xyz, 0.02, 64).cpu(),
+                                    self.sampling.ball_query(centers.cpu(), xyz.cpu(), 0.02, 64))):
+                raise AssertionError("learner B=8: FPS / ball-query indices differ card vs CPU")
+            got = update(state, batches[i], noise_draws=draws[i])
+            want = update_cpu(state_cpu, cpu(batches[i]), noise_draws=cpu(draws[i]))
+            if i == 1 and float(want["actor_critic_loss"]) == 0.0:
+                raise AssertionError("learner B=8: the actor term is not live")
+            for k, w in want.items():
+                torch.testing.assert_close(got[k].cpu(), w, rtol=1e-3, atol=1e-3,
+                                           msg=f"update {i} {k}")
+                err = max(err, (got[k].cpu() - w).abs().item())
+            if i == 1:
+                serr = self.compare_updated(cfg, before, state, state_cpu)
+        log(f"[learner] ddpg updates B=8: indices equal, card vs CPU metrics of two updates "
+            f"max_abs_err={err:.3e}, running statistics max_abs_err={serr:.3e}, "
+            f"parameter and target moves within bounds ok")
+
+    def compare_updated(self, cfg, before, state, state_cpu):
+        """The card's and the CPU's state after one update from `before`:
+        update_step and optimizer counts equal, running statistics within
+        1e-3, and every group's moves within the bounds that
+        tests/test_torch_learner.py holds a JAX and a port update to with
+        the actor term on (group -> (threshold in lr, share of elements
+        whose two moves differ by more)). A Dense bias that feeds a
+        BatchNorm has a gradient of 0 up to rounding: it may move either
+        way, by at most Adam's largest second-step move, 1.0014 lr.
+        Returns the running statistics' largest difference."""
+        bounds = {"policy": (cfg.lr, 0.5, 2e-2), "encoder": (cfg.feature_lr, 0.5, 2e-2),
+                  "critic": (cfg.value_lr, 0.1, 1e-3),
+                  "value_encoder": (cfg.feature_lr, 0.1, 2e-3),
+                  "critic_target": (cfg.value_lr, 0.1, 1e-3),
+                  "policy_target": (cfg.lr, 2.5e-4, 1e-3)}
+        modules = lambda st: {"policy": st.policy, "encoder": st.feat.encoder,
+                              "critic": st.critic, "value_encoder": st.feat.value_encoder,
+                              "critic_target": st.critic_target,
+                              "policy_target": st.policy_target}
+        if state.update_step != state_cpu.update_step or any(
+                state.opt[k].count != o.count for k, o in state_cpu.opt.items()):
+            raise AssertionError("learner B=8: update_step or optimizer counts differ")
+        serr = 0.0
+        for (name, b), (_, b_cpu) in zip(state.feat.named_buffers(),
+                                         state_cpu.feat.named_buffers()):
+            if b.is_floating_point():
+                torch.testing.assert_close(b.cpu(), b_cpu, rtol=1e-3, atol=1e-3, msg=name)
+                serr = max(serr, (b.cpu() - b_cpu).abs().max().item())
+        prev, got, want = modules(before), modules(state), modules(state_cpu)
+        for group, (lr, threshold, share) in bounds.items():
+            off = total = 0
+            for (name, p0), (_, p), (_, p_cpu) in zip(prev[group].named_parameters(),
+                                                      got[group].named_parameters(),
+                                                      want[group].named_parameters()):
+                moved, moved_cpu = (p.detach().cpu() - p0).double(), (p_cpu - p0).double()
+                if group.endswith("encoder") and name.endswith(".bias") and (
+                        ".dense." in name or name.startswith("fc.")):
+                    if max(moved.abs().max(), moved_cpu.abs().max()) > 1.0014 * lr * (1 + 1e-4):
+                        raise AssertionError(f"learner B=8: {group} {name} moved more than lr")
+                    continue
+                off += int(((moved - moved_cpu).abs() > threshold * lr).sum())
+                total += p.numel()
+            log(f"[learner]   {group}: {off} of {total} moves differ by more than "
+                f"{threshold} lr (bound {share})")
+            if off > share * total:
+                raise AssertionError(f"learner B=8: {group}: {off} of {total} moves differ")
+        return serr
+
+    def train_timings(self, gen):
+        """K5/K6 per level at B=256 (kernel and plain forward, CUDA events)
+        -> totals over one policy-encoder train forward."""
+        totals = {k: {"ms": 0.0, "plain_ms": 0.0, "bytes": 0, "flops": 0}
+                  for k in ("sa_train", "groupall_train")}
+        for label, kernel, args in self.train_calls(TRAIN_BATCH, gen):
+            with torch.no_grad():
+                ms = cuda_ms(lambda: self.wrappers[kernel](*args), reps=5, rounds=5)
+                plain = cuda_ms(lambda: self.train_reference(kernel)(*args), reps=2, rounds=3)
+            nbytes, flops = train_work(kernel, args)
+            bms, by = bound_ms(nbytes, flops)
+            log(f"[time] {kernel:14s} {label:10s} B={TRAIN_BATCH}: kernel {ms:.4f} ms, "
+                f"plain {plain:.4f} ms, bound {bms:.6f} ms ({by}; {nbytes} B, {flops} FLOP)")
+            if label.startswith("policy"):
+                t = totals[kernel]
+                t["ms"] += ms
+                t["plain_ms"] += plain
+                t["bytes"] += nbytes
+                t["flops"] += flops
         return totals
 
     def kernel_line(self, totals):
@@ -409,7 +797,7 @@ class Smoke:
             rows.append({
                 "name": kernel,
                 "route": "cuda",
-                "source": f"gaddpg_tpu_torch/ops/csrc/{kernel}.cu",
+                "source": f"gaddpg_tpu_torch/ops/csrc/{SOURCES.get(kernel, kernel)}.cu",
                 "replaces": REPLACES[kernel],
                 "launches": self.launches[kernel],
                 "max_abs_err": self.errors[kernel],
@@ -446,13 +834,17 @@ def main() -> int:
                     log(f"[build] {name}: {line.strip()}")
         torch.manual_seed(0)
         gen = torch.Generator(device="cuda").manual_seed(0)
-        with torch.no_grad():  # serving only: no autograd graph anywhere
+        with torch.no_grad():  # serving: no autograd graph anywhere
             smoke = Smoke()
             smoke.check_kernels(gen)
+        smoke.check_train_kernels(gen)  # gradients: outside no_grad
+        with torch.no_grad():
             select, inputs = smoke.main_path(gen)
             smoke.runner()
             totals = smoke.timings(select, inputs, gen)
-            line = smoke.kernel_line(totals)
+        smoke.learner(gen)
+        totals.update(smoke.train_timings(gen))
+        line = smoke.kernel_line(totals)
     except Exception:  # report which phase failed, then fail the run
         traceback.print_exc()
         return 1

@@ -4,12 +4,17 @@ The layout mirrors the JAX package, so each module's counterpart sits at
 the same relative path. This package imports torch and numpy only, never
 JAX or anything of `gaddpg_tpu`.
 
-What is ported so far is the policy-serving path: a (B, 4, 1030) point
-state -> PointNet++ encoder -> Gaussian policy head
-(`agents.ddpg.make_select_action`, `deploy.runner.PolicyRunner`). Its
-four point-cloud kernels (furthest point sampling, ball query, and the
-two eval set-abstraction kernels) are hand-written CUDA C++ for sm_90a
-under `ops/csrc/`, built with nvcc at first use.
+What is ported so far:
+- the policy-serving path: a (B, 4, 1030) point state -> PointNet++
+  encoder -> Gaussian policy head (`agents.ddpg.make_select_action`,
+  `deploy.runner.PolicyRunner`);
+- the learner: the train-mode encoder (batch-statistics BatchNorm), the
+  twin-Q critic, the losses, the optimizers and the DDPG and BC updates
+  (`agents.ddpg.make_ddpg_update`, `agents.bc.make_bc_update`).
+Their six point-cloud kernels (furthest point sampling, ball query, the
+two eval set-abstraction kernels and the two train-mode stats kernels)
+are hand-written CUDA C++ for sm_90a under `ops/csrc/`, built with nvcc
+at first use.
 
 Entry points default to `device="cuda"` and raise when no card is
 present; pass `device="cpu"` to run the plain PyTorch versions of the

@@ -1,13 +1,22 @@
-"""Agent state for the serving path (counterpart of gaddpg_tpu/agents/state.py).
+"""Agent state: modules, targets, optimizers (counterpart of gaddpg_tpu/agents/state.py).
 
 The JAX `AgentState` is one pytree of parameters, statistics and
-optimizer states. The port's holds the two modules that serving needs:
-the `PointNetFeature` encoders (parameters and BatchNorm running
-statistics) and the `GaussianPolicy` head, both in eval mode. Critic,
-targets and optimizers come with the learner.
+optimizer states. The port's holds modules instead:
+
+- `feat`: the `PointNetFeature` encoders (parameters and BatchNorm
+  running statistics), `policy`: the `GaussianPolicy` head, `critic`: the
+  twin-Q `QNetwork`, all kept in eval mode (the train forward is asked
+  for explicitly, see models/pointnet.py);
+- `policy_target`, `critic_target`: snapshots of the heads, as in the
+  reference where the feature extractor has no target copy
+  (reference: core/ddpg.py:69-88);
+- `opt`: the four optimizers ("policy", "critic", "encoder",
+  "value_encoder"), `agents.optim.AdamW`;
+- `update_step`: the number of updates taken.
 
 `create_agent_state` initialises them with the JAX package's
-initialisers; `from_flax` loads a JAX state's trees.
+initialisers; `from_flax` loads a JAX state's trees, optimizer states
+included, so a JAX checkpoint resumes in the port.
 """
 
 import copy
@@ -19,24 +28,44 @@ import torch
 from torch import nn
 
 from gaddpg_tpu_torch.agents.config import AgentConfig
-from gaddpg_tpu_torch.models import GaussianPolicy, PointNetFeature
+from gaddpg_tpu_torch.agents.optim import AdamW
+from gaddpg_tpu_torch.models import GaussianPolicy, PointNetFeature, QNetwork
 from gaddpg_tpu_torch.utils.precision import resolve_device
+
+OPTIMIZERS = ("policy", "critic", "encoder", "value_encoder")
 
 
 @dataclasses.dataclass
 class AgentState:
     feat: PointNetFeature
     policy: GaussianPolicy
+    critic: QNetwork = None
+    policy_target: GaussianPolicy = None
+    critic_target: QNetwork = None
+    opt: dict = None
+    update_step: int = 0
 
     @property
     def device(self) -> torch.device:
         return next(self.policy.parameters()).device
 
     def to(self, device) -> "AgentState":
-        """A copy of this state on `device`."""
+        """A copy of this state on `device`, optimizer states included."""
         device = resolve_device(device)
-        return AgentState(copy.deepcopy(self.feat).to(device),
-                          copy.deepcopy(self.policy).to(device))
+        out = AgentState(*(None if m is None else copy.deepcopy(m).to(device)
+                           for m in (self.feat, self.policy, self.critic,
+                                     self.policy_target, self.critic_target)),
+                         update_step=self.update_step)
+        if self.opt is not None:
+            out.opt = {}
+            for name, params in _optimizer_params(out).items():
+                src = self.opt[name]
+                opt = copy.copy(src)
+                opt.params = params
+                opt.mu = [t.to(device, copy=True) for t in src.mu]
+                opt.nu = [t.to(device, copy=True) for t in src.nu]
+                out.opt[name] = opt
+        return out
 
 
 def check_supported(cfg: AgentConfig):
@@ -50,7 +79,8 @@ def check_supported(cfg: AgentConfig):
 
 
 def make_modules(cfg: AgentConfig):
-    """(feature encoder, policy head) for `cfg`, with torch's default init."""
+    """(feature encoder, policy head, critic) for `cfg`, with torch's
+    default init."""
     check_supported(cfg)
     feat = PointNetFeature()
     # the optional collision-prediction logit rides as the LAST dim of
@@ -62,7 +92,91 @@ def make_modules(cfg: AgentConfig):
         extra_pred_dim=(7 if cfg.policy_aux else 1)
         + (1 if cfg.collision_aux_weight > 0 else 0),
     )
-    return feat, policy
+    critic = QNetwork(num_inputs=cfg.num_inputs, hidden=cfg.hidden_size,
+                      extra_pred_dim=7 if cfg.critic_aux else 0)
+    return feat, policy, critic
+
+
+# -- Flax names ----------------------------------------------------------------
+# Each module's parameters as (tensor, path in the Flax tree, transposed),
+# in one fixed order: the optimizers step them in this order and
+# `from_flax` loads parameters and Adam moments through it. Flax Dense
+# kernels are (in, out), torch Linear weights (out, in).
+
+def _dense_pairs(linear: nn.Linear, path):
+    return [(linear.weight, (*path, "kernel"), True), (linear.bias, (*path, "bias"), False)]
+
+
+def _encoder_pairs(enc):
+    out = []
+    for i, sa in enumerate(enc.sa):
+        for j, (d, bn) in enumerate(zip(sa.dense, sa.norms)):
+            out += _dense_pairs(d, (f"SetAbstraction_{i}", f"Dense_{j}"))
+            out += [(bn.weight, (f"SetAbstraction_{i}", f"BatchNorm_{j}", "scale"), False),
+                    (bn.bias, (f"SetAbstraction_{i}", f"BatchNorm_{j}", "bias"), False)]
+    for j, (d, bn) in enumerate(zip(enc.fc, enc.fc_norms)):
+        out += _dense_pairs(d, (f"Dense_{j}",))
+        out += [(bn.weight, (f"BatchNorm_{j}", "scale"), False),
+                (bn.bias, (f"BatchNorm_{j}", "bias"), False)]
+    return out
+
+
+def _encoder_stat_pairs(enc):
+    out = []
+    for i, sa in enumerate(enc.sa):
+        for j, bn in enumerate(sa.norms):
+            out += [(bn.running_mean, (f"SetAbstraction_{i}", f"BatchNorm_{j}", "mean"), False),
+                    (bn.running_var, (f"SetAbstraction_{i}", f"BatchNorm_{j}", "var"), False)]
+    for j, bn in enumerate(enc.fc_norms):
+        out += [(bn.running_mean, (f"BatchNorm_{j}", "mean"), False),
+                (bn.running_var, (f"BatchNorm_{j}", "var"), False)]
+    return out
+
+
+def _policy_pairs(policy):
+    heads = (policy.fc1, policy.fc2, policy.mean, policy.extra, policy.log_std)
+    return [p for j, d in enumerate(heads) for p in _dense_pairs(d, (f"Dense_{j}",))]
+
+
+def _critic_pairs(critic):
+    names = ["q1_l1", "q1_l2", "q1_out", "q2_l1", "q2_l2", "q2_out"]
+    if critic.extra_pred_dim > 0:
+        names += ["aux_l1", "aux_l2", "aux_out"]
+    return [p for n in names for p in _dense_pairs(getattr(critic, n), (n,))]
+
+
+def _pairs(state: AgentState):
+    """Optimizer name -> (tensor, Flax path, transposed) of what it steps."""
+    return {
+        "policy": _policy_pairs(state.policy),
+        "critic": _critic_pairs(state.critic),
+        "encoder": _encoder_pairs(state.feat.encoder),
+        "value_encoder": _encoder_pairs(state.feat.value_encoder),
+    }
+
+
+def _optimizer_params(state: AgentState):
+    return {name: [t for t, _, _ in pairs] for name, pairs in _pairs(state).items()}
+
+
+def make_optimizers(cfg: AgentConfig, state: AgentState) -> dict:
+    """Adam (eps 1e-5, decoupled weight decay 1e-5) with a MultiStepLR
+    schedule for each of the four parameter groups; the critic's
+    gradients are clipped by global norm (reference:
+    core/utils.py:960-1006, core/ddpg.py:141). The policy encoder and the
+    value encoder keep separate optimizers, stepped by different losses
+    (reference: core/utils.py:221-234)."""
+    params = _optimizer_params(state)
+    kw = dict(eps=cfg.adam_eps, weight_decay=cfg.weight_decay)
+    return {
+        "policy": AdamW(params["policy"], cfg.lr, cfg.policy_milestones, cfg.lr_gamma, **kw),
+        "critic": AdamW(params["critic"], cfg.value_lr, cfg.value_milestones,
+                        cfg.value_lr_gamma, clip=cfg.clip_grad, **kw),
+        "encoder": AdamW(params["encoder"], cfg.feature_lr, cfg.feature_milestones,
+                         cfg.feature_lr_gamma, **kw),
+        "value_encoder": AdamW(params["value_encoder"], cfg.feature_lr,
+                               cfg.feature_milestones, cfg.feature_lr_gamma, **kw),
+    }
 
 
 def _truncated_normal_(w: torch.Tensor, scale: float, generator: torch.Generator):
@@ -79,11 +193,36 @@ def _xavier_uniform_(w: torch.Tensor, generator: torch.Generator):
     nn.init.uniform_(w, -limit, limit, generator=generator)
 
 
+def _init_heads_(module: nn.Module, generator: torch.Generator):
+    """xavier-uniform weights, zero biases for every Linear of a head."""
+    for d in module.modules():
+        if isinstance(d, nn.Linear):
+            _xavier_uniform_(d.weight, generator)
+            d.bias.zero_()
+
+
+def _assemble(cfg, feat, policy, critic, device, update_step=0,
+              policy_target=None, critic_target=None) -> AgentState:
+    """AgentState on `device` with targets (copies of the heads unless
+    given) and fresh optimizers."""
+    state = AgentState(
+        feat.eval(), policy.eval(), critic.eval(),
+        (policy_target if policy_target is not None else copy.deepcopy(policy)).eval(),
+        (critic_target if critic_target is not None else copy.deepcopy(critic)).eval(),
+        update_step=update_step,
+    )
+    for m in (state.feat, state.policy, state.critic, state.policy_target, state.critic_target):
+        m.to(device)
+    state.opt = make_optimizers(cfg, state)
+    return state
+
+
 def create_agent_state(cfg: AgentConfig = AgentConfig(), npoints: int = 1030,
                        generator: torch.Generator = None, device="cuda") -> AgentState:
-    """Fresh serving state on `device`, initialised as the JAX package does:
+    """Fresh agent state on `device`, initialised as the JAX package does:
     kaiming-normal SA Denses, lecun-normal FC Denses, xavier-uniform head
-    Denses, zero biases, BatchNorm scale 1 / bias 0 / mean 0 / var 1.
+    Denses (policy and critic), zero biases, BatchNorm scale 1 / bias 0 /
+    mean 0 / var 1; targets equal to the heads; optimizers at count 0.
 
     `npoints` (the point-state width, 6 anchors + cloud) is checked only:
     the modules do not depend on it. `generator` is a CPU generator
@@ -94,7 +233,7 @@ def create_agent_state(cfg: AgentConfig = AgentConfig(), npoints: int = 1030,
         raise ValueError(f"npoints={npoints} leaves no cloud after the 6 hand anchors")
     if generator is None:
         generator = torch.Generator().manual_seed(0)
-    feat, policy = make_modules(cfg)
+    feat, policy, critic = make_modules(cfg)
     with torch.no_grad():
         for enc in (feat.encoder, feat.value_encoder):
             for sa in enc.sa:
@@ -107,7 +246,14 @@ def create_agent_state(cfg: AgentConfig = AgentConfig(), npoints: int = 1030,
         for d in (policy.fc1, policy.fc2, policy.mean, policy.extra, policy.log_std):
             _xavier_uniform_(d.weight, generator)
             d.bias.zero_()
-    return AgentState(feat.eval().to(device), policy.eval().to(device))
+        _init_heads_(critic, generator)
+    return _assemble(cfg, feat, policy, critic, device)
+
+
+def _leaf(tree, path):
+    for key in path:
+        tree = tree[key]
+    return tree
 
 
 def _copy_(dst: torch.Tensor, src, transpose: bool = False):
@@ -119,41 +265,62 @@ def _copy_(dst: torch.Tensor, src, transpose: bool = False):
     dst.copy_(src)
 
 
-def _load_dense(linear: nn.Linear, p):
-    _copy_(linear.weight, p["kernel"], transpose=True)  # Flax kernels are (in, out)
-    _copy_(linear.bias, p["bias"])
-
-
-def _load_bn(bn: nn.BatchNorm1d, p, stats):
-    _copy_(bn.weight, p["scale"])
-    _copy_(bn.bias, p["bias"])
-    _copy_(bn.running_mean, stats["mean"])
-    _copy_(bn.running_var, stats["var"])
+def _load(pairs, tree):
+    for t, path, transpose in pairs:
+        _copy_(t, _leaf(tree, path), transpose)
 
 
 def from_flax(feat_params, feat_stats, policy_params, cfg: AgentConfig = AgentConfig(),
-              device="cuda") -> AgentState:
+              device="cuda", *, critic_params=None, policy_target=None, critic_target=None,
+              policy_opt=None, critic_opt=None, encoder_opt=None, value_encoder_opt=None,
+              update_step: int = 0) -> AgentState:
     """AgentState from a JAX state's trees, as nested dicts of arrays
     (e.g. `jax.tree_util.tree_map(np.asarray, state.feat_params)`).
 
     feat: `{encoder, value_encoder}/SetAbstraction_{0,1,2}/{Dense,BatchNorm}_{0,1,2}`
     and `Dense_{0,1}`, `BatchNorm_{0,1}` for the FC trunk; statistics
-    under the same names with `mean`/`var`. policy: `Dense_0..Dense_4` =
-    fc1, fc2, mean, extra, log_std."""
+    under the same names with `mean`/`var`. policy (and policy_target):
+    `Dense_0..Dense_4` = fc1, fc2, mean, extra, log_std. critic (and
+    critic_target): `q1_l1 .. aux_out`.
+
+    Optional, to resume training: `critic_params` (default: initialised
+    as `create_agent_state` does with seed 0), the targets (default:
+    copies of the heads), each optimizer's optax Adam state as
+    {"mu": tree, "nu": tree, "count": int} with trees shaped like the
+    parameters it steps (`policy_opt`: policy_params, `critic_opt`:
+    critic_params, `encoder_opt` / `value_encoder_opt`:
+    feat_params["encoder"] / ["value_encoder"]; default: fresh), and
+    `update_step`."""
     device = resolve_device(device)
-    feat, policy = make_modules(cfg)
+    feat, policy, critic = make_modules(cfg)
+    p_target, c_target = copy.deepcopy(policy), copy.deepcopy(critic)
     with torch.no_grad():
         for name in ("encoder", "value_encoder"):
-            enc, p, st = getattr(feat, name), feat_params[name], feat_stats[name]
-            for i, sa in enumerate(enc.sa):
-                sp, ss = p[f"SetAbstraction_{i}"], st[f"SetAbstraction_{i}"]
-                for j, (d, bn) in enumerate(zip(sa.dense, sa.norms)):
-                    _load_dense(d, sp[f"Dense_{j}"])
-                    _load_bn(bn, sp[f"BatchNorm_{j}"], ss[f"BatchNorm_{j}"])
-            for j, (d, bn) in enumerate(zip(enc.fc, enc.fc_norms)):
-                _load_dense(d, p[f"Dense_{j}"])
-                _load_bn(bn, p[f"BatchNorm_{j}"], st[f"BatchNorm_{j}"])
-        heads = (policy.fc1, policy.fc2, policy.mean, policy.extra, policy.log_std)
-        for j, d in enumerate(heads):
-            _load_dense(d, policy_params[f"Dense_{j}"])
-    return AgentState(feat.eval().to(device), policy.eval().to(device))
+            enc = getattr(feat, name)
+            _load(_encoder_pairs(enc), feat_params[name])
+            _load(_encoder_stat_pairs(enc), feat_stats[name])
+        _load(_policy_pairs(policy), policy_params)
+        if critic_params is None:
+            _init_heads_(critic, torch.Generator().manual_seed(0))
+        else:
+            _load(_critic_pairs(critic), critic_params)
+        _load(_policy_pairs(p_target),
+              policy_params if policy_target is None else policy_target)
+        if critic_target is None:
+            c_target.load_state_dict(critic.state_dict())
+        else:
+            _load(_critic_pairs(c_target), critic_target)
+    state = _assemble(cfg, feat, policy, critic, device, int(update_step), p_target, c_target)
+    opts = {"policy": policy_opt, "critic": critic_opt, "encoder": encoder_opt,
+            "value_encoder": value_encoder_opt}
+    for name, pairs in _pairs(state).items():
+        src = opts[name]
+        if src is None:
+            continue
+        opt = state.opt[name]
+        for moments, key in ((opt.mu, "mu"), (opt.nu, "nu")):
+            with torch.no_grad():
+                for t, (_, path, transpose) in zip(moments, pairs):
+                    _copy_(t, _leaf(src[key], path), transpose)
+        opt.count = int(src["count"])
+    return state

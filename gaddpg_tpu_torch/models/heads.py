@@ -1,8 +1,7 @@
-"""Policy head (counterpart of gaddpg_tpu/models/heads.py).
+"""Policy and critic heads (counterpart of gaddpg_tpu/models/heads.py).
 
-A plain MLP, so its target copy is a parameter snapshot, like the
-reference where only the heads have target networks. `QNetwork` comes
-with the learner.
+Plain MLPs (no norm layers), so their target copies are parameter
+snapshots, like the reference where only the heads have target networks.
 """
 
 import math
@@ -76,3 +75,36 @@ class GaussianPolicy(nn.Module):
         log_prob = log_prob.sum(dim=-1, keepdim=True)
         squashed_mean = torch.tanh(mean) * scale
         return squashed_mean, log_prob, action, extra
+
+
+class QNetwork(nn.Module):
+    """Twin Q + 7-d auxiliary pose head.
+
+    With sa_channel_concat the action rides inside the state feature (the
+    value encoder sees it tiled over the points), so no action is
+    concatenated here (reference: core/ddpg.py:91-99). The aux head reads
+    the state only. Layer names are the Flax module's: q1_l1, q1_l2,
+    q1_out, q2_*, aux_*."""
+
+    def __init__(self, num_inputs: int = 513, hidden: int = 256, extra_pred_dim: int = 7):
+        super().__init__()
+        self.extra_pred_dim = extra_pred_dim
+        for q in ("q1", "q2"):
+            setattr(self, f"{q}_l1", nn.Linear(num_inputs, hidden))
+            setattr(self, f"{q}_l2", nn.Linear(hidden, hidden))
+            setattr(self, f"{q}_out", nn.Linear(hidden, 1))
+        if extra_pred_dim > 0:
+            self.aux_l1 = nn.Linear(num_inputs, hidden)
+            self.aux_l2 = nn.Linear(hidden, hidden)
+            self.aux_out = nn.Linear(hidden, extra_pred_dim)
+
+    def forward(self, state):
+        """state (B, F) -> (q1 (B, 1), q2 (B, 1), aux (B, extra) or None)."""
+        h1 = torch.relu(self.q1_l2(torch.relu(self.q1_l1(state))))
+        h2 = torch.relu(self.q2_l2(torch.relu(self.q2_l1(state))))
+        aux = None
+        if self.extra_pred_dim > 0:
+            aux = self.aux_out(torch.relu(self.aux_l2(torch.relu(self.aux_l1(state)))))
+            if self.extra_pred_dim == 7:
+                aux = normalize_quat_head(aux)
+        return self.q1_out(h1), self.q2_out(h2), aux

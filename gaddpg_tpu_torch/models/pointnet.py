@@ -8,11 +8,22 @@ The reference `base_network` at model_scale=1
     SA3: group-all,                mlp (256+3)-> 256 -> 256 -> 512
     FC:  512 -> 1024 -> 512 (BatchNorm + ReLU after each)
 
-Points stay channels-last, (B, N, C). Only the eval forward is ported:
-each SA level folds its BatchNorms (running statistics, eps 1e-5) into
-its Dense layers and runs as FPS -> ball query -> fused gather+MLP+max
-(kernels K1, K2, K3; the group-all level K4). `train=True`, which needs
-batch statistics, belongs to the learner and raises.
+Points stay channels-last, (B, N, C).
+
+Eval (`train=False`): each SA level folds its BatchNorms (running
+statistics, eps 1e-5) into its Dense layers and runs as FPS -> ball
+query -> fused gather+MLP+max (kernels K1, K2, K3; the group-all level
+K4).
+
+Train (`train=True`): every BatchNorm normalises with its batch
+statistics. Grouped levels run K1 -> K2 -> `sa_train_fused` (K5 stats
+passes, then K3), the group-all level `groupall_train_fused` (K6, then
+K4), and the FC trunk uses Flax's arithmetic (fast variance clamped at
+0). The train forward does not touch the running statistics: it returns
+each BatchNorm's batch (mean, var), and the caller folds the ones it
+keeps in with `PointNetEncoder.update_running_stats`, as the JAX update
+keeps the statistics of two of its five encoder forwards. The modules'
+own BatchNorm layers stay in eval mode.
 """
 
 from typing import Sequence
@@ -21,16 +32,31 @@ import torch
 from torch import nn
 
 from gaddpg_tpu_torch.ops.sa import folded_sa_weights, mlp_maxpool, sa_gather_mlp
+from gaddpg_tpu_torch.ops.sa_train import groupall_train_fused, sa_train_fused
 from gaddpg_tpu_torch.ops.sampling import ball_query, furthest_point_sampling, gather_points
 
 BN_EPS = 1e-5
+# Flax BatchNorm momentum: running = 0.9 * running + 0.1 * batch
+BN_MOMENTUM = 0.9
 
 
-def _no_train(train: bool):
-    if train:
-        raise NotImplementedError(
-            "train-mode PointNet++ (batch-statistics BatchNorm) is not ported yet"
-        )
+def batch_norm_train(bn: nn.BatchNorm1d, x):
+    """Train BatchNorm over axis 0 with Flax's arithmetic (fast variance,
+    clamped at 0): (x - mean) * (rsqrt(var + eps) * scale) + bias.
+    Returns (y, mean, var)."""
+    m = x.mean(dim=0)
+    v = torch.clamp((x * x).mean(dim=0) - m * m, min=0.0)
+    return (x - m) * (torch.rsqrt(v + bn.eps) * bn.weight) + bn.bias, m, v
+
+
+@torch.no_grad()
+def update_running_stats(norms, stats, momentum: float = BN_MOMENTUM):
+    """Fold batch statistics [(mean, var)] into the BatchNorms `norms`
+    as Flax does: running = momentum * running + (1 - momentum) * batch,
+    with the biased variance clamped at 0."""
+    for bn, (m, v) in zip(norms, stats, strict=True):
+        bn.running_mean.copy_(momentum * bn.running_mean + (1 - momentum) * m)
+        bn.running_var.copy_(momentum * bn.running_var + (1 - momentum) * torch.clamp(v, min=0.0))
 
 
 def batch_norm_eval(bn: nn.BatchNorm1d, x):
@@ -62,19 +88,28 @@ class SetAbstraction(nn.Module):
         self.norms = nn.ModuleList(_batch_norm(c) for c in mlp)
 
     def forward(self, xyz, feats, train: bool = False):
-        """xyz (B, N, 3); feats (B, N, C) -> (B, S, 3), (B, S, mlp[-1])."""
-        _no_train(train)
-        weights = folded_sa_weights(self.dense, self.norms)
+        """xyz (B, N, 3); feats (B, N, C) -> (B, S, 3), (B, S, mlp[-1]),
+        and with train=True also the three BatchNorms' batch
+        ((mean, var),) * 3, detached."""
         full = torch.cat([xyz, feats], dim=-1)  # (B, N, 3 + C)
+        if train:
+            dense = tuple((d.weight.t().contiguous(), d.bias, bn.weight, bn.bias)
+                          for d, bn in zip(self.dense, self.norms))
+        else:
+            weights = folded_sa_weights(self.dense, self.norms)
         if self.group_all:
             new_xyz = xyz.new_zeros((xyz.shape[0], 1, 3))
+            if train:
+                return (new_xyz, *groupall_train_fused(full, dense))
             return new_xyz, mlp_maxpool(full, weights)
-        xyz = xyz.contiguous()
+        xyz = xyz.detach().contiguous()
         centers = furthest_point_sampling(xyz, self.npoint)
         new_xyz = gather_points(xyz, centers)
         group_idx = ball_query(new_xyz, xyz, self.radius, self.nsample)
         # centre offsets for the gathered rows: xyz in cols 0:3, zero elsewhere
         cpad = nn.functional.pad(new_xyz, (0, full.shape[-1] - 3))
+        if train:
+            return (new_xyz, *sa_train_fused(group_idx, full, cpad, dense))
         return new_xyz, sa_gather_mlp(group_idx, full, cpad, weights)
 
 
@@ -98,15 +133,35 @@ class PointNetEncoder(nn.Module):
         self.fc_norms = nn.ModuleList([_batch_norm(1024 * s), _batch_norm(512 * s)])
 
     def forward(self, pc, train: bool = False):
-        """pc (B, N, C): columns 0:3 xyz, rest extra channels -> (B, 512s)."""
-        _no_train(train)
+        """pc (B, N, C): columns 0:3 xyz, rest extra channels -> (B, 512s);
+        with train=True -> ((B, 512s), [(mean, var)] of every BatchNorm in
+        the order of `batch_norms`, detached)."""
         xyz, feats = pc[..., :3], pc
+        stats = []
         for sa in self.sa:
-            xyz, feats = sa(xyz, feats)
+            if train:
+                xyz, feats, level_stats = sa(xyz, feats, train=True)
+                stats += level_stats
+            else:
+                xyz, feats = sa(xyz, feats)
         h = feats[:, 0]
         for fc, bn in zip(self.fc, self.fc_norms):
-            h = torch.relu(batch_norm_eval(bn, fc(h)))
-        return h
+            if train:
+                h, m, v = batch_norm_train(bn, fc(h))
+                stats.append((m.detach(), v.detach()))
+                h = torch.relu(h)
+            else:
+                h = torch.relu(batch_norm_eval(bn, fc(h)))
+        return (h, stats) if train else h
+
+    def batch_norms(self):
+        """Every BatchNorm: SA levels' in order, then the FC trunk's."""
+        return [bn for sa in self.sa for bn in sa.norms] + list(self.fc_norms)
+
+    def update_running_stats(self, stats):
+        """Fold one train forward's batch statistics (in the order of
+        `batch_norms`) into the running ones."""
+        update_running_stats(self.batch_norms(), stats)
 
 
 class PointNetFeature(nn.Module):
@@ -132,12 +187,13 @@ class PointNetFeature(nn.Module):
         return point_state[:, :channels, self.num_hand_points:].transpose(1, 2)
 
     def forward(self, point_state, action=None, value: bool = False, train: bool = False):
-        """point_state (B, 4, 1030); action (B, 6) for the value path."""
-        _no_train(train)
+        """point_state (B, 4, 1030); action (B, 6) for the value path.
+        Returns the encoder's output (with train=True, also its batch
+        statistics)."""
         if value:
             pc = point_state
             if action is not None:
                 tiled = action[:, :, None].expand(*action.shape, point_state.shape[-1])
                 pc = torch.cat([pc, tiled], dim=1)
-            return self.value_encoder(self._prep(pc, self.value_in))
-        return self.encoder(self._prep(point_state, self.policy_in))
+            return self.value_encoder(self._prep(pc, self.value_in), train)
+        return self.encoder(self._prep(point_state, self.policy_in), train)

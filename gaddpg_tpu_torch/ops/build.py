@@ -25,7 +25,7 @@ import torch
 
 CSRC = Path(__file__).with_name("csrc")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
-KERNELS = ("fps", "ball_query", "sa_gather_mlp", "mlp_maxpool")
+KERNELS = ("fps", "ball_query", "sa_gather_mlp", "mlp_maxpool", "sa_train_stats")
 # shared memory one block may use on H100 (227 KB)
 MAX_SMEM_BYTES = 232448
 NVCC_FLAGS = (
@@ -40,6 +40,7 @@ SIGNATURES = {
     "ball_query": ("gaddpg_ball_query", (_P, _P, _I, _I, _I, _F, _I, _P, _P)),
     "sa_gather_mlp": ("gaddpg_sa_gather_mlp", (_P,) * 10 + (_I,) * 8 + (_P,)),
     "mlp_maxpool": ("gaddpg_mlp_maxpool", (_P,) * 8 + (_I,) * 6 + (_P,)),
+    "sa_train_stats": ("gaddpg_sa_train_stats", (_P,) * 16 + (_I,) * 9 + (_P,)),
 }
 
 _lock = threading.Lock()

@@ -1,6 +1,6 @@
 // Shared pieces of the port's kernels: the error-string export every
-// library carries, exact squared distances, and the dense+ReLU tile
-// used by both eval set-abstraction kernels.
+// library carries, exact squared distances, and the register-tiled dense
+// layer of the set-abstraction kernels (eval K3/K4, train K5/K6).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -25,20 +25,35 @@ __device__ __forceinline__ float sq_dist(float ax, float ay, float az,
                    __fmul_rn(dz, dz));
 }
 
-// A thread's register tile in dense_relu: kTileRows rows x kTileCols
+// A thread's register tile in dense_layer: kTileRows rows x kTileCols
 // adjacent output columns.
 constexpr int kTileRows = 8;
 constexpr int kTileCols = 4;
-static_assert(kTileCols == 4, "dense_relu loads one float4 of w per input channel");
+static_assert(kTileCols == 4, "dense_layer loads one float4 of w per input channel");
 
-// out[k][c] = relu(sum_j in[k][j] * w[j][c] + b[c]) for k < rows, c < cout.
-// `in` (rows x cin) and `out` (rows x cout) are row-major in shared
-// memory; w (cin x cout, row-major, 16-byte aligned, cout a multiple of
-// kTileCols) and b stay in global memory, where the block's repeated
-// reads hit L1/L2. With pool != nullptr nothing is stored and pool[c]
-// (shared, zero-initialised) becomes the max over k instead: ReLU
-// outputs are >= 0, so 0 is the identity of that max and the
-// non-negative floats order like their bit patterns as ints.
+// What dense_layer does with z = in @ w + b:
+//  kStore:   out[k][c] = relu(z * gain[c] + offset[c]) (no affine when
+//            gain is null), rows x cout in shared memory;
+//  kMaxPool: out[c] = max over k of the same (out is a shared row,
+//            zero-initialised by the caller);
+//  kStats:   per-channel sum and sum of squares of z itself (no affine,
+//            no ReLU) over the rows, one partial per row group: out is
+//            [groups][2][cout] in shared memory (dense_groups).
+enum class Epilogue { kStore, kMaxPool, kStats };
+
+// Row groups dense_layer splits `threads` into for `cout` columns: when
+// there are fewer column groups than threads, the spare threads split
+// the rows.
+__host__ __device__ inline int dense_groups(int cout, int threads) {
+  const int quads = cout / kTileCols;
+  const int lanes = quads < threads ? quads : threads;
+  return threads / lanes;
+}
+
+// One dense layer over `rows` rows of `in` (rows x cin, row-major, in
+// shared memory); w (cin x cout, row-major, 16-byte aligned, cout a
+// multiple of kTileCols), b, gain and offset stay in global memory,
+// where the block's repeated reads hit L1/L2.
 //
 // Thread layout: consecutive threads take consecutive groups of
 // kTileCols columns, so a warp's float4 loads of w are coalesced and its
@@ -46,11 +61,15 @@ static_assert(kTileCols == 4, "dense_relu loads one float4 of w per input channe
 // threads, the spare threads split the rows. Per input channel j a
 // thread loads one float4 of w and kTileRows values of `in` and does
 // kTileRows * kTileCols FMAs, which keeps shared-memory traffic well
-// under the FMA rate. The caller synchronises the block before and after.
-__device__ __forceinline__ void dense_relu(
+// under the FMA rate. Every sum a thread keeps runs over its rows in a
+// fixed order, so the result does not depend on scheduling. The caller
+// synchronises the block before and after.
+template <Epilogue kMode>
+__device__ __forceinline__ void dense_layer(
     const float* __restrict__ in, int rows, int cin,
-    const float* __restrict__ w, const float* __restrict__ b, int cout,
-    float* __restrict__ out, float* __restrict__ pool) {
+    const float* __restrict__ w, const float* __restrict__ b,
+    const float* __restrict__ gain, const float* __restrict__ offset, int cout,
+    float* __restrict__ out) {
   const int quads = cout / kTileCols;
   const int lanes = min(quads, static_cast<int>(blockDim.x));
   const int groups = blockDim.x / lanes;
@@ -58,11 +77,14 @@ __device__ __forceinline__ void dense_relu(
   if (g >= groups) return;
   for (int q = threadIdx.x % lanes; q < quads; q += lanes) {
     const int c = q * kTileCols;
-    float bias[kTileCols], vmax[kTileCols];
+    float bias[kTileCols], mul[kTileCols], add[kTileCols], red[kTileCols], sq[kTileCols];
 #pragma unroll
     for (int t = 0; t < kTileCols; ++t) {
       bias[t] = b[c + t];
-      vmax[t] = 0.0f;
+      mul[t] = gain != nullptr ? gain[c + t] : 1.0f;
+      add[t] = gain != nullptr ? offset[c + t] : 0.0f;
+      red[t] = 0.0f;
+      sq[t] = 0.0f;
     }
     for (int k0 = g * kTileRows; k0 < rows; k0 += groups * kTileRows) {
       const float* row[kTileRows];
@@ -89,20 +111,34 @@ __device__ __forceinline__ void dense_relu(
         if (k0 + r < rows) {
 #pragma unroll
           for (int t = 0; t < kTileCols; ++t) {
-            const float v = fmaxf(acc[r][t] + bias[t], 0.0f);
-            if (pool != nullptr) {
-              vmax[t] = fmaxf(vmax[t], v);
+            const float z = acc[r][t] + bias[t];
+            if (kMode == Epilogue::kStats) {
+              red[t] += z;
+              sq[t] = fmaf(z, z, sq[t]);
             } else {
-              out[(k0 + r) * cout + c + t] = v;
+              const float v = fmaxf(gain != nullptr ? z * mul[t] + add[t] : z, 0.0f);
+              if (kMode == Epilogue::kMaxPool) {
+                red[t] = fmaxf(red[t], v);
+              } else {
+                out[(k0 + r) * cout + c + t] = v;
+              }
             }
           }
         }
       }
     }
-    if (pool != nullptr) {
+    if (kMode == Epilogue::kMaxPool) {
+      // ReLU outputs are >= 0, so 0 is the identity of the max and the
+      // non-negative floats order like their bit patterns as ints
 #pragma unroll
       for (int t = 0; t < kTileCols; ++t) {
-        atomicMax(reinterpret_cast<int*>(pool + c + t), __float_as_int(vmax[t]));
+        atomicMax(reinterpret_cast<int*>(out + c + t), __float_as_int(red[t]));
+      }
+    } else if (kMode == Epilogue::kStats) {
+#pragma unroll
+      for (int t = 0; t < kTileCols; ++t) {
+        out[(2 * g) * cout + c + t] = red[t];
+        out[(2 * g + 1) * cout + c + t] = sq[t];
       }
     }
   }
@@ -129,11 +165,11 @@ __device__ __forceinline__ float* mlp3_maxpool(
   float* h1 = smem + rows * a;  // rows x c1
   float* pool = h1 + rows * c1; // c3
   for (int c = threadIdx.x; c < c3; c += blockDim.x) pool[c] = 0.0f;
-  dense_relu(x, rows, cin, w1, b1, c1, h1, nullptr);
+  dense_layer<Epilogue::kStore>(x, rows, cin, w1, b1, nullptr, nullptr, c1, h1);
   __syncthreads();
-  dense_relu(h1, rows, c1, w2, b2, c2, x, nullptr);
+  dense_layer<Epilogue::kStore>(h1, rows, c1, w2, b2, nullptr, nullptr, c2, x);
   __syncthreads();
-  dense_relu(x, rows, c2, w3, b3, c3, nullptr, pool);
+  dense_layer<Epilogue::kMaxPool>(x, rows, c2, w3, b3, nullptr, nullptr, c3, pool);
   __syncthreads();
   return pool;
 }

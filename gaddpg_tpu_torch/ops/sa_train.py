@@ -1,0 +1,260 @@
+"""Train-mode set abstraction: batch-statistics BatchNorm and the K5/K6
+kernels (counterpart of gaddpg_tpu/ops/pallas_sa_train.py).
+
+In train mode each BatchNorm normalises with the batch's own statistics,
+which exist only after the layer's output over the whole batch does, so
+the eval kernels' weight folding cannot run up front. Each level instead
+runs three streaming stats passes, then one forward:
+
+    stats_1 = pass 1: gather -> Dense_1, per-channel sum / sum of squares
+    stats_2 = pass 2: recompute layer 1 with BN_1(stats_1) -> Dense_2, ...
+    stats_3 = pass 3: recompute layers 1, 2 -> Dense_3, ...
+    pooled  = the eval kernel (K3, or K4 for group-all) on the Denses
+              folded with the three batch-stat affines
+
+with mean = sum / count, var = E[z^2] - mean^2 (no clamp, as the JAX
+kernels compute it), and bn(z) = z * a + c, a = scale / sqrt(var + eps),
+c = bias - mean * a (`bn_affine`).
+
+- `sa_train_fused` (grouped level; K5 stats passes, `csrc/sa_train_stats.cu`)
+- `groupall_train_fused` (group-all level; K6, the same stats kernel with
+  an identity gather and no centring)
+
+Each is a `torch.autograd.Function`. Its backward is the JAX package's
+rule: it keeps only the inputs and differentiates the plain version
+(`sa_train_reference` / `groupall_train_reference`) recomputed under
+autograd. Each returns pooled plus ((mean, var),) * 3, the statistics
+detached. A CPU tensor runs the plain version forward, a CUDA tensor the
+kernels or raises. `launches` counts the calls that launched the stats
+kernels (three passes each); the final forward counts in K3's or K4's
+own counter.
+
+Dense layers are ((w, b, scale, bias),) * 3 with w of shape (C_in, C_out),
+the Flax kernel layout, and scale / bias the BatchNorm's parameters.
+"""
+
+import torch
+
+from gaddpg_tpu_torch.ops import build
+from gaddpg_tpu_torch.ops.sa import _check_widths, mlp_maxpool, sa_gather_mlp
+
+BN_EPS = 1e-5
+
+
+def bn_affine(mean, var, scale, bias, eps: float = BN_EPS):
+    """(mean, var, scale, bias) -> (a, c) with bn(z) = z * a + c."""
+    a = scale / torch.sqrt(var + eps)
+    return a, bias - mean * a
+
+
+def _train_mlp(h, dense, dims):
+    """3x (Dense -> BatchNorm with the statistics of its output over
+    `dims` -> ReLU) -> (h, ((mean, var),) * 3)."""
+    stats = []
+    for w, b, scale, bias in dense:
+        z = h @ w + b
+        m = z.mean(dim=dims)
+        v = (z * z).mean(dim=dims) - m * m
+        a, c = bn_affine(m, v, scale, bias)
+        h = torch.relu(z * a + c)
+        stats.append((m, v))
+    return h, tuple(stats)
+
+
+def sa_train_reference(group_idx, full, cpad, dense):
+    """Plain train SA level: group_idx (B, S, K) int, full (B, N, C_in),
+    cpad (B, S, C_in) centre offsets (xyz in cols 0:3, zero elsewhere) ->
+    pooled (B, S, C3), ((mean, var),) * 3 over B*S*K rows.
+
+    Computes layer by layer, once, where the kernels recompute layers
+    1..i for each stats pass; the function is the same as the JAX
+    package's `_xla_full`."""
+    b, s, k = group_idx.shape
+    rows = torch.gather(
+        full, 1, group_idx.reshape(b, s * k, 1).long().expand(-1, -1, full.shape[-1])
+    ).reshape(b, s, k, -1)
+    h, stats = _train_mlp(rows - cpad[:, :, None, :], dense, (0, 1, 2))
+    return h.amax(dim=2), stats
+
+
+def groupall_train_reference(full, dense):
+    """Plain train group-all level: full (B, N, C_in), not centred ->
+    pooled (B, 1, C3), ((mean, var),) * 3 over B*N rows (the JAX
+    package's `_xla_groupall_full`)."""
+    h, stats = _train_mlp(full, dense, (0, 1))
+    return h.amax(dim=1, keepdim=True), stats
+
+
+def _dense(params):
+    """12 flat tensors -> ((w, b, scale, bias),) * 3."""
+    return tuple(tuple(params[4 * i: 4 * i + 4]) for i in range(3))
+
+
+def _check_dense(name, dense, cin):
+    if len(dense) != 3 or any(len(layer) != 4 for layer in dense):
+        raise ValueError(f"{name}: expected 3 (w, b, scale, bias) layers")
+    widths = _check_widths(name, [(w, b) for w, b, _, _ in dense], cin)
+    for (_, _, scale, bias), c in zip(dense, widths):
+        if (scale.dtype != torch.float32 or bias.dtype != torch.float32
+                or scale.shape != (c,) or bias.shape != (c,)):
+            raise ValueError(f"{name}: BatchNorm scale/bias must be float32 of shape ({c},)")
+
+
+def _stats_passes(full, dense, idx=None, cpad=None):
+    """Launch the three stats passes of the K5/K6 kernel over `full` (B,
+    N, C_in): `idx` (B, S, K) and `cpad` (B, S, C_in) for a grouped level,
+    None for the group-all level (S = 1, K = N: every row of a cloud, not
+    centred) -> ((mean, var),) * 3 and the affines. The C entry rejects
+    widths and tiles the kernel cannot take."""
+    b, n, cin = full.shape
+    s, k = (1, n) if idx is None else idx.shape[1:]
+    dev = full.device
+    stats, affine = [], []
+    for upto in (1, 2, 3):
+        cout = dense[upto - 1][0].shape[1]
+        partial = torch.empty((b * s, 2, cout), dtype=torch.float32, device=dev)
+        mean = torch.empty(cout, dtype=torch.float32, device=dev)
+        var = torch.empty(cout, dtype=torch.float32, device=dev)
+        ptrs = []
+        for i, (w, w_bias, _, _) in enumerate(dense):
+            ptrs += [w.data_ptr(), w_bias.data_ptr()]
+            if i < 2:
+                a, c = affine[i] if i < upto - 1 else (None, None)
+                ptrs += [0 if a is None else a.data_ptr(), 0 if c is None else c.data_ptr()]
+        build.launch("sa_train_stats", dev, 0 if idx is None else idx.data_ptr(),
+                     full.data_ptr(), 0 if cpad is None else cpad.data_ptr(), *ptrs,
+                     partial.data_ptr(), mean.data_ptr(), var.data_ptr(), b, s, k, n, cin,
+                     *(w.shape[1] for w, _, _, _ in dense), upto)
+        _, _, scale, bias = dense[upto - 1]
+        affine.append(bn_affine(mean, var, scale, bias))
+        stats.append((mean, var))
+    return tuple(stats), affine
+
+
+def _folded(dense, affine):
+    """The eval kernels' weights for the batch-stat affines:
+    relu((h @ w + b) * a + c) = relu(h @ (w * a) + (b * a + c))."""
+    return tuple(((w * a[None, :]).contiguous(), b * a + c)
+                 for (w, b, _, _), (a, c) in zip(dense, affine))
+
+
+def _sa_train_kernels(group_idx, full, cpad, dense):
+    stats, affine = _stats_passes(full, dense, group_idx, cpad)
+    sa_train_fused.launches += 1
+    return sa_gather_mlp(group_idx, full, cpad, _folded(dense, affine)), stats
+
+
+def _groupall_train_kernels(full, dense):
+    stats, affine = _stats_passes(full, dense)
+    groupall_train_fused.launches += 1
+    return mlp_maxpool(full, _folded(dense, affine)), stats
+
+
+# profiler range around every backward recompute, so that a trace can
+# tell the plain backward's device time from the rest
+BACKWARD_RANGE = "sa_train.backward_recompute"
+
+
+def _grads(fn, inputs, needs, grad_out):
+    """Gradients of fn(*inputs) against grad_out for the inputs whose
+    flag in `needs` is set (None for the others), by recomputing fn under
+    autograd."""
+    with torch.enable_grad(), torch.profiler.record_function(BACKWARD_RANGE):
+        leaves = [t.detach().requires_grad_(need) for t, need in zip(inputs, needs)]
+        out = fn(*leaves)
+        wanted = [t for t in leaves if t.requires_grad]
+        grads = iter(torch.autograd.grad(out, wanted, grad_out) if wanted else ())
+    return [next(grads) if need else None for need in needs]
+
+
+class _SATrain(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, group_idx, full, cpad, *params):
+        dense = _dense(params)
+        if full.device.type == "cpu":
+            pooled, stats = sa_train_reference(group_idx, full, cpad, dense)
+        else:
+            pooled, stats = _sa_train_kernels(group_idx, full, cpad, dense)
+        ctx.save_for_backward(group_idx, full, cpad, *params)
+        flat = [t for mv in stats for t in mv]
+        ctx.mark_non_differentiable(*flat)
+        return (pooled, *flat)
+
+    @staticmethod
+    def backward(ctx, grad_pooled, *_):
+        group_idx, *inputs = ctx.saved_tensors
+
+        def pooled(full, cpad, *params):
+            return sa_train_reference(group_idx, full, cpad, _dense(params))[0]
+
+        return (None, *_grads(pooled, inputs, ctx.needs_input_grad[1:], grad_pooled))
+
+
+class _GroupAllTrain(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, full, *params):
+        dense = _dense(params)
+        if full.device.type == "cpu":
+            pooled, stats = groupall_train_reference(full, dense)
+        else:
+            pooled, stats = _groupall_train_kernels(full, dense)
+        ctx.save_for_backward(full, *params)
+        flat = [t for mv in stats for t in mv]
+        ctx.mark_non_differentiable(*flat)
+        return (pooled, *flat)
+
+    @staticmethod
+    def backward(ctx, grad_pooled, *_):
+        def pooled(full, *params):
+            return groupall_train_reference(full, _dense(params))[0]
+
+        return tuple(_grads(pooled, ctx.saved_tensors, ctx.needs_input_grad, grad_pooled))
+
+
+def _unflatten(out):
+    pooled, *flat = out
+    return pooled, tuple((flat[2 * i], flat[2 * i + 1]) for i in range(3))
+
+
+def sa_train_fused(group_idx, full, cpad, dense):
+    """Train SA level with batch-statistics BatchNorm: group_idx (B, S, K)
+    int32 (indices in [0, N)), full (B, N, C_in), cpad (B, S, C_in), dense
+    ((w, b, scale, bias),) * 3 -> pooled (B, S, C3), ((mean, var),) * 3.
+
+    Differentiable in full, cpad and the 12 parameters (the backward
+    recomputes `sa_train_reference`). CPU tensors: the plain version.
+    CUDA tensors: the K5 stats passes, then K3."""
+    b, s, _ = group_idx.shape
+    cin = full.shape[-1]
+    if (group_idx.dtype != torch.int32 or full.dtype != torch.float32
+            or cpad.dtype != torch.float32 or full.dim() != 3 or full.shape[0] != b
+            or cpad.shape != (b, s, cin)):
+        raise ValueError(
+            f"sa_train_fused: group_idx {group_idx.dtype} {tuple(group_idx.shape)}, "
+            f"full {full.dtype} {tuple(full.shape)}, cpad {cpad.dtype} {tuple(cpad.shape)}"
+        )
+    _check_dense("sa_train_fused", dense, cin)
+    flat = [t for layer in dense for t in layer]
+    build.kernel_device("sa_train_fused", group_idx, full, cpad, *flat)
+    return _unflatten(_SATrain.apply(group_idx, full, cpad, *flat))
+
+
+sa_train_fused.launches = 0
+
+
+def groupall_train_fused(full, dense):
+    """Train group-all SA level: full (B, N, C_in) float32, not centred,
+    dense ((w, b, scale, bias),) * 3 -> pooled (B, 1, C3),
+    ((mean, var),) * 3.
+
+    Differentiable in full and the 12 parameters. CPU tensors: the plain
+    version. CUDA tensors: the K6 stats passes, then K4."""
+    if full.dtype != torch.float32 or full.dim() != 3:
+        raise ValueError(f"groupall_train_fused: full {full.dtype} {tuple(full.shape)}")
+    _check_dense("groupall_train_fused", dense, full.shape[-1])
+    flat = [t for layer in dense for t in layer]
+    build.kernel_device("groupall_train_fused", full, *flat)
+    return _unflatten(_GroupAllTrain.apply(full, *flat))
+
+
+groupall_train_fused.launches = 0

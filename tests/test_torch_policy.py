@@ -212,7 +212,7 @@ def test_unported_options_raise(port_state):
     with pytest.raises(NotImplementedError):
         create_agent_state(AgentConfig(compute_dtype="bfloat16"), device="cpu")
     with pytest.raises(NotImplementedError):
-        port_state.feat(torch.zeros(1, 4, NPOINTS), train=True)
+        create_agent_state(AgentConfig(use_image=True), device="cpu")
 
 
 def test_create_agent_state_matches_jax_shapes_and_init(jax_state):
@@ -251,12 +251,15 @@ bad = sorted(n for n in sys.modules
              if n.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "gaddpg_tpu"))
 raised = {}
 import torch
-from gaddpg_tpu_torch.agents import AgentConfig, create_agent_state, make_select_action
+from gaddpg_tpu_torch.agents import (
+    AgentConfig, create_agent_state, make_bc_update, make_ddpg_update, make_select_action)
 from gaddpg_tpu_torch.deploy.runner import PolicyRunner
 for name, call in (
         ("make_select_action", lambda: make_select_action(AgentConfig())),
         ("create_agent_state", lambda: create_agent_state(AgentConfig(), npoints=96)),
-        ("PolicyRunner", lambda: PolicyRunner(None, AgentConfig()))):
+        ("PolicyRunner", lambda: PolicyRunner(None, AgentConfig())),
+        ("make_ddpg_update", lambda: make_ddpg_update()),
+        ("make_bc_update", lambda: make_bc_update())):
     try:
         call()
         raised[name] = None
@@ -269,17 +272,19 @@ print(json.dumps({"bad": bad, "cuda": torch.cuda.is_available(), "raised": raise
 
 def test_port_imports_no_jax_and_cuda_entry_points_raise():
     """In a fresh interpreter: every module of the port and chip_smoke
-    import without JAX, Flax, Optax or the JAX package; the entry points
-    default to CUDA and raise where there is none."""
+    import without JAX, Flax, Optax or the JAX package; the entry points,
+    the learner's updates included, default to CUDA and raise where there
+    is none."""
     env = dict(os.environ, PYTHONPATH=REPO)
     out = subprocess.run([sys.executable, "-c", _IMPORT_CHECK], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     res = json.loads(out.stdout.strip().splitlines()[-1])
     assert res["bad"] == []
-    for mod in ("ops.build", "ops.sampling", "ops.sa", "models.pointnet", "models.heads",
-                "agents.state", "agents.ddpg", "deploy.runner", "deploy.realworld",
-                "geometry.gripper", "utils.precision"):
+    for mod in ("ops.build", "ops.sampling", "ops.sa", "ops.sa_train", "models.pointnet",
+                "models.heads", "agents.state", "agents.optim", "agents.losses", "agents.ddpg",
+                "agents.bc", "deploy.runner", "deploy.realworld", "geometry.gripper",
+                "geometry.rotations", "utils.precision"):
         assert f"gaddpg_tpu_torch.{mod}" in res["modules"]
     if not res["cuda"]:
         for name, msg in res["raised"].items():
