@@ -43,17 +43,61 @@ Phases, each of which must pass:
      tests/test_torch_learner.py) and the update step; update times (host
      clock), device busy time, idle share
      and where the device time goes (torch.profiler), peak memory, and
-     K5/K6 per level against their plain versions and bounds.
+     K5/K6 per level against their plain versions and bounds;
+  7. hold K7 (the contact scan) against its plain version on the card
+     over 60 substeps at batch 8 and 1024, on contact-rich states (objects
+     at the closing gripper and on the table, as
+     tests/test_pallas_physics.py builds them, tiled with seeded jitter)
+     and on states from a live env rollout with the fingers closing:
+     pos and quat within 2e-5, linvel 2e-4, angvel 2e-3, fingers 2e-5 (the
+     JAX suite's bounds, tests/test_pallas_physics.py:59-66), the
+     gripper-contact flag equal, and two launches bit-identical. A grasp
+     at the edge of slipping is chaotic: nudging its object position by
+     one ulp moves the plain version itself past those bounds (up to
+     2e-4 m and 0.19 m/s over 60 substeps). Such envs, at most 3% of a
+     batch, are counted, and the kernel's departure there, in units of
+     the bounds, must stay within 4 times the largest departure of the
+     plain version itself over 8 one-ulp nudges;
+  8. drive the env path, `PandaGraspEnv(EnvParams(use_planner=False),
+     library_from_index("ycb", "train"))` at batch 1024 (bench.py's env
+     count): `reset` from a seeded generator, 20 steps of the goal-servo
+     expert, `retract_batched`, with the counters set to 0 before and read
+     after each call (K7 2x in reset, one 200-substep settle per try; 1x
+     per step; 11x in retract, the close and 10 lift steps); every value
+     finite, every object below z = 1.0 unless the gripper carries it
+     (in contact, its centre within 0.15 m of the hand: the expert can
+     carry a light object up before the retract, as the JAX package does
+     on the same scene), the valid-scene count and the
+     lift rate over valid scenes; then time `step_batched` (host clock,
+     median of 7 after a warm-up, bench.py's constant action), its device
+     busy time, idle share and top device activities (torch.profiler),
+     `reset` and `retract_batched`, and K7 at n = 75 against its plain
+     version and its bound (CUDA events);
+  9. run the same 8 scenes through `reset_scene`, 3 `step_batched` calls
+     (each from the CPU's state carried over) and `retract_batched` on the
+     card and on the CPU with the same random draws: the object and
+     fingers within the phase-7 bounds, the arm within two quanta of its
+     servo (2.4e-4 rad; tests/test_torch_env.py says why), the grasp goal
+     within 1e-4, done and collided equal, the target-point count within
+     1% + 2 and at most 10% of the sampled points without a point of the
+     other device's reservoir within 1e-4 (the servo quantum moves the
+     camera, and a pixel-edge difference of the z-buffer shifts the
+     reservoir, tests/test_torch_env.py), and equal lift outcomes. An env
+     whose object is off the bounds must be chaotic as in phase 7: the
+     CPU path, with its object position nudged by one ulp, moves at least
+     a quarter as far; such an env's view is not compared.
 
 Prints the card's name and power limit (nvidia-smi), then one JSON line
 with every kernel's numbers (launches: K1-K4 over the phase-3 calls, K5/K6
-over the phase-6 updates; ms, plain_ms, bound_ms: K1-K4 summed over the
-kernel's levels in one forward at B=1024, K5/K6 over their levels in one
-policy-encoder train forward at B=256), then as the last line
+over the phase-6 updates, K7 over the phase-8 env path; ms, plain_ms,
+bound_ms: K1-K4 summed over the kernel's levels in one forward at
+B=1024, K5/K6 over their levels in one policy-encoder train forward at
+B=256, K7 one 75-substep launch at B=1024), then as the last line
 {"ok": true, "device": {...}}. Exits non-zero, printing no result, when
 no CUDA card is available or any phase fails.
 """
 
+import dataclasses
 import json
 import os
 import statistics
@@ -81,19 +125,43 @@ REPLACES = {
     "mlp_maxpool": "gaddpg_tpu/ops/pallas_sa.py:147",
     "sa_train": "gaddpg_tpu/ops/pallas_sa_train.py:314",
     "groupall_train": "gaddpg_tpu/ops/pallas_sa_train.py:443",
+    "contact_scan": "gaddpg_tpu/ops/pallas_physics.py:425",
 }
 SOURCES = {"sa_train": "sa_train_stats", "groupall_train": "sa_train_stats"}
 PER_CALL = {"fps": 2, "ball_query": 2, "sa_gather_mlp": 2, "mlp_maxpool": 1,
-            "sa_train": 0, "groupall_train": 0}
+            "sa_train": 0, "groupall_train": 0, "contact_scan": 0}
 # launches of one update: five train-mode encoder forwards (DDPG), one (BC)
 DDPG_PER_UPDATE = {"fps": 10, "ball_query": 10, "sa_gather_mlp": 10, "mlp_maxpool": 5,
-                   "sa_train": 10, "groupall_train": 5}
+                   "sa_train": 10, "groupall_train": 5, "contact_scan": 0}
 BC_PER_UPDATE = {k: v // 5 for k, v in DDPG_PER_UPDATE.items()}
 TRAIN_BATCH, TRAIN_POINTS = 256, 1030  # bench.py's learner envelope
 TIMED_UPDATES = 3
 CHECK_BATCHES = (8, 256)      # kernels against their plain versions
 MAIN_BATCHES = (1, 8, 1024)   # one robot, entry(), bench.py's env count
 TIME_BATCHES = (1, 1024)      # kernel timings; the JSON line sums the last
+ENV_BATCH = 1024              # bench.py's env count
+ENV_STEPS = 20                # RL_MAX_STEP
+K7_BATCHES = (8, 1024)
+K7_SUBSTEPS = 60              # tests/test_pallas_physics.py's horizon
+# K7 output columns and their bounds (tests/test_pallas_physics.py:59-66)
+K7_BOUNDS = {"pos": (slice(0, 3), 2e-5), "quat": (slice(3, 7), 2e-5),
+             "linvel": (slice(7, 10), 2e-4), "angvel": (slice(10, 13), 2e-3),
+             "fingers": (slice(13, 15), 2e-5)}
+# launches of K7 per env-path call: one settle per reset try; the close
+# and the lift steps of a retract
+RESET_K7, STEP_K7, RETRACT_K7 = 2, 1, 1 + 10
+ARM_SERVO_QUANTUM = 30.0 * 2e-3 * 2e-3  # arm_acc_limit * dt^2, rad
+# a chaotic contact trajectory: how many one-ulp nudges of the plain
+# version measure its spread, and the share of envs that may be chaotic
+ULP_PROBES = 8
+CHAOTIC_SHARE = 0.03
+CHAOS_FACTOR = 4.0
+HELD_RADIUS = 0.15  # m, hand origin to the centre of an object in its fingers
+# card vs CPU after a step: the arm may differ by a servo quantum (up to
+# 2.4e-4 rad), which moves the camera by up to about 1e-4 m and flips
+# pixels along the object's silhouette; shares of up to 0.041 of the
+# sampled points without a match were measured on one H100
+POINT_SHARE_BOUND = 0.10
 
 
 def log(msg):
@@ -165,10 +233,11 @@ def host_ms(fn, reps=20):
     return statistics.median(times)
 
 
-def device_profile(fn, calls=5, ranges=()):
+def device_profile(fn, calls=5, ranges=(), count=False):
     """(device busy ms per call, [(name, ms per call), ...] of every device
     activity by time, {range: device ms per call}) of `fn` under
-    torch.profiler. Busy is the sum over device-side events (kernels,
+    torch.profiler, and with `count` the number of device activities
+    (kernel launches, copies) per call. Busy is the sum over device-side events (kernels,
     copies), each counted once; the CPU ops that launched them are left
     out, since they would count the same time again. `ranges` names
     `record_function` ranges whose device time (the kernels launched
@@ -190,7 +259,12 @@ def device_profile(fn, calls=5, ranges=()):
     for e in prof.events():  # the kernels launched inside each range
         if e.name in spans and e.device_type == DeviceType.CPU:
             spans[e.name] += e.device_time_total / 1e3 / calls
-    return sum(ms for _, ms in rows), rows, spans
+    busy = sum(ms for _, ms in rows)
+    if count:
+        n = sum(e.count for e in prof.key_averages()
+                if e.device_type != DeviceType.CPU and e.key not in ranges)
+        return busy, rows, spans, n / calls
+    return busy, rows, spans
 
 
 def bound_ms(nbytes, flops):
@@ -243,13 +317,81 @@ def train_work(kernel, args):
     return (full.numel() + b * c3) * f32 + pbytes + stats, 2 * b * n * macs
 
 
+def contact_scan_work(args, n):
+    """(bytes, flops) of one contact scan of n substeps on these inputs.
+
+    Bytes: each input read once, the (B, 16) output written once. FLOPs,
+    counted from the substep (ops/contact_scan.py, the XLA substep of the
+    JAX package), with a quaternion rotation 30, a cross product 9, a dot
+    5, a norm 6, a division or square root 1:
+    - per sphere: centre and hand-frame centre 66, table contact 11, the
+      box SDF, normal, contact point and surface velocity of each of the
+      three boxes 102 (306), the finger and gripper-flag tallies 11;
+    - per contact (4 per sphere): normal force 99, the friction set-up 87,
+      four friction passes 159, rigid-set stiction 25, torsion 60, and
+      for the three pad contacts the rotational stiction 25;
+    - per env: the box frames 99, the passive clamps, gyroscopic term,
+      the four impulse applications and the stiction, damping,
+      integration and finger updates, about 780, and 31 adds for each of
+      the 48 per-env sums over 32 spheres.
+    Every branch of the function is counted (the XLA substep computes
+    both normals of every box contact)."""
+    b = args[0].shape[0]
+    nbytes = sum(t.numel() * t.element_size() for t in args) + b * 16 * 4
+    per_sphere = 66 + 11 + 306 + 11 + 4 * (99 + 87 + 159 + 25 + 60) + 3 * 25
+    per_env = 32 * per_sphere + 780 + 48 * 31
+    return nbytes, n * b * per_env
+
+
+def physics_ratio(a, b):
+    """(B,) largest departure of physics state a from b over the object
+    and the fingers, in units of the phase-7 bounds."""
+    fields = {"pos": (a.obj.pos, b.obj.pos), "quat": (a.obj.quat, b.obj.quat),
+              "linvel": (a.obj.linvel, b.obj.linvel), "angvel": (a.obj.angvel, b.obj.angvel),
+              "fingers": (a.arm.q[:, 7:9], b.arm.q[:, 7:9])}
+    return torch.stack([((x - y).abs() / K7_BOUNDS[k][1]).amax(dim=1)
+                        for k, (x, y) in fields.items()], dim=1).amax(dim=1)
+
+
+def map_state(state, envs):
+    from gaddpg_tpu_torch.physics.types import map_tensors
+
+    return map_tensors(state, lambda t: t[envs])
+
+
+def repeat_state(state, reps):
+    from gaddpg_tpu_torch.physics.types import map_tensors
+
+    return map_tensors(state, lambda t: t.repeat(reps, *([1] * (t.dim() - 1))))
+
+
+def nudge_state(state, nudge):
+    """state with its object positions moved by one ulp."""
+    state.phys.obj.pos = nudge(state.phys.obj.pos)
+    return state
+
+
+def nn_miss_share(pts, ref, tol=1e-4):
+    """Per env: share of the points pts (B, N, 3) farther than `tol` from
+    every point of ref (B, M, 3) (a list of per-env clouds)."""
+    out = []
+    for p, r in zip(pts, ref):
+        if r.shape[0] == 0:
+            out.append(float(p.abs().sum() > 0))
+            continue
+        d = torch.cdist(p[None].double(), r[None].double())[0].min(dim=1).values
+        out.append(float((d > tol).float().mean()))
+    return out
+
+
 class Smoke:
     def __init__(self):
         from gaddpg_tpu_torch.agents import AgentConfig, create_agent_state
         from gaddpg_tpu_torch.geometry.gripper import HAND_FINGER_POINTS
-        from gaddpg_tpu_torch.ops import build, sa, sa_train, sampling
+        from gaddpg_tpu_torch.ops import build, contact_scan, sa, sa_train, sampling
 
         self.build, self.sa, self.sa_train, self.sampling = build, sa, sa_train, sampling
+        self.cs = contact_scan
         self.hand_points = HAND_FINGER_POINTS
         self.wrappers = {
             "fps": sampling.furthest_point_sampling,
@@ -258,6 +400,7 @@ class Smoke:
             "mlp_maxpool": sa.mlp_maxpool,
             "sa_train": sa_train.sa_train_fused,
             "groupall_train": sa_train.groupall_train_fused,
+            "contact_scan": contact_scan.contact_scan,
         }
         self.serving = ("fps", "ball_query", "sa_gather_mlp", "mlp_maxpool")
         self.cfg = AgentConfig()
@@ -789,6 +932,350 @@ class Smoke:
                 t["flops"] += flops
         return totals
 
+    # -- phase 7: K7 against its plain version --------------------------------------
+    def contact_rich_states(self, batch, gen):
+        """tests/test_pallas_physics.py::make_states (a box and a cylinder
+        at the closing gripper and on the table, the arm swinging joint 2,
+        the fingers closing), tiled to `batch` with +-5 mm of seeded
+        jitter in x and y after the first three."""
+        from gaddpg_tpu_torch.envs.assets import AssetSpec, build_library
+        from gaddpg_tpu_torch.physics import types
+        from gaddpg_tpu_torch.robot import panda
+        from gaddpg_tpu_torch.utils.constants import const
+
+        lib = build_library([AssetSpec("box", "box", (0.05, 0.05, 0.10), 0.2),
+                             AssetSpec("cyl", "cylinder", (0.033, 0.10), 0.35)]).to(self.device)
+        d = self.device
+        q = torch.cat([const(panda.DEFAULT_JOINTS, d), torch.tensor([0.04, 0.04], device=d)])
+        qs = q.repeat(batch, 1)
+        tgt = qs.clone()
+        tgt[:, 1] += 0.08
+        tgt[:, 7:] = 0.0
+        base = torch.tensor([[0.55, 0.0, 0.0501], [0.50, 0.05, 0.0501], [0.58, -0.04, 0.0335]],
+                            device=d)
+        pos = base.repeat((batch + 2) // 3, 1)[:batch].clone()
+        pos[3:, :2] += (torch.rand((max(batch - 3, 0), 2), generator=gen, device=d) - 0.5) * 0.01
+        idx = torch.tensor([0, 1, 0], device=d).repeat((batch + 2) // 3)[:batch]
+        state = types.PhysicsState(
+            arm=types.ArmState(q=qs, qd=torch.zeros(batch, 7, device=d), q_target=tgt),
+            obj=types.BodyState(pos=pos, quat=torch.tensor([1.0, 0, 0, 0], device=d).repeat(batch, 1),
+                                linvel=torch.tensor([0.05, -0.02, 0.0], device=d).repeat(batch, 1),
+                                angvel=torch.tensor([0.0, 0.0, 0.3], device=d).repeat(batch, 1)),
+            contact_force=torch.zeros(batch, device=d),
+            gripper_contact=torch.zeros(batch, dtype=torch.bool, device=d))
+        return state, lib.spheres[idx], lib.mass[idx], lib.inertia[idx]
+
+    def rollout_states(self, env, gen):
+        """Physics states of a live env rollout at ENV_BATCH: a reset and 8
+        expert steps, then the fingers set to close as a retract does."""
+        state, _ = env.reset(ENV_BATCH, gen)
+        for _ in range(8):
+            state = env.step_batched(state, env.expert_action(state), gen)[0]
+        phys = state.phys
+        phys.arm.q_target = phys.arm.q_target.clone()
+        phys.arm.q_target[:, 7:9] = 0.0
+        idx = state.obj_idx
+        return phys, env.lib.spheres[idx], env.lib.mass[idx], env.lib.inertia[idx]
+
+    def scan_args(self, state, sph, mass, inertia, n):
+        from gaddpg_tpu_torch.physics import fast
+        from gaddpg_tpu_torch.physics.types import PhysicsParams
+
+        p = PhysicsParams()
+        _, _, hand = fast.hand_trajectory(p, state.arm, n)
+        return p, [t.contiguous() for t in fast.pack_contact_scan(p, n, state, sph, mass,
+                                                                   inertia, hand)]
+
+    def chaotic_spread(self, p, n, args, envs, want):
+        """(len(envs), 16) largest move of the plain version's output over
+        ULP_PROBES runs whose object positions are nudged by one ulp (one
+        call, the probes stacked along the batch): how far float32
+        rounding alone moves each env's trajectory."""
+        # hand (n, B, 13) and sph3 (3, B, NS) carry the env batch second
+        sub = [a[:, envs] if i in (1, 2) else a[envs] for i, a in enumerate(args)]
+        reps = [t.repeat(1, ULP_PROBES, 1) if i in (1, 2) else
+                t.repeat(ULP_PROBES, *([1] * (t.dim() - 1))) for i, t in enumerate(sub)]
+        s16 = reps[0].clone()
+        gen = torch.Generator(device=self.device).manual_seed(11)
+        toward = s16[:, :3] + torch.randn(s16[:, :3].shape, generator=gen,
+                                          device=self.device).sign()
+        s16[:, :3] = torch.nextafter(s16[:, :3], toward)
+        out = self.cs.contact_scan_reference(p, n, s16, *[t.contiguous() for t in reps[1:]])
+        dev = (out.view(ULP_PROBES, len(envs), 16) - want[envs]).abs()
+        return dev.amax(dim=0)
+
+    def check_contact_scan(self, env, gen):
+        """K7 against its plain version on the card. Where an env's
+        trajectory is chaotic (a grasp at the edge of slipping: the plain
+        version itself moves past the bounds when its object position is
+        nudged by one ulp), the kernel's departure from the plain version,
+        in units of the bounds, is held within CHAOS_FACTOR times the
+        plain version's own one-ulp departure instead; at most
+        CHAOTIC_SHARE of the envs may be such."""
+        cs = self.cs
+        rich = self.contact_rich_states(max(K7_BATCHES), gen)
+        live = self.rollout_states(env, gen)
+        self.k7_live = live
+        for kind, full in (("contact-rich", rich), ("rollout", live)):
+            for batch in K7_BATCHES:
+                state = dataclasses.replace(
+                    full[0], arm=type(full[0].arm)(*(t[:batch] for t in (
+                        full[0].arm.q, full[0].arm.qd, full[0].arm.q_target))),
+                    obj=type(full[0].obj)(*(t[:batch] for t in (
+                        full[0].obj.pos, full[0].obj.quat, full[0].obj.linvel, full[0].obj.angvel))))
+                p, args = self.scan_args(state, *(t[:batch] for t in full[1:]), K7_SUBSTEPS)
+                got = cs.contact_scan(p, K7_SUBSTEPS, *args)
+                again = cs.contact_scan(p, K7_SUBSTEPS, *args)
+                want = cs.contact_scan_reference(p, K7_SUBSTEPS, *args)
+                torch.cuda.synchronize()
+                if not torch.equal(got, again):
+                    raise AssertionError(f"K7 {kind} B={batch}: two launches differ")
+                diff = (got - want).abs()
+                tol = torch.zeros(16, device=self.device)
+                for sl, t in K7_BOUNDS.values():
+                    tol[sl] = t
+                off = ((diff[:, :15] > tol[:15]).any(dim=1)
+                       | (got[:, 15] != want[:, 15])).nonzero()[:, 0]
+                note = ""
+                if len(off):
+                    if len(off) > CHAOTIC_SHARE * batch:
+                        raise AssertionError(f"K7 {kind} B={batch}: {len(off)} envs off the bounds")
+                    spread = self.chaotic_spread(p, K7_SUBSTEPS, args, off, want)
+                    # departures in units of each field's bound
+                    r_kernel = (diff[off, :15] / tol[:15]).amax(dim=1)
+                    r_plain = (spread[:, :15] / tol[:15]).amax(dim=1)
+                    flag_ok = (got[off, 15] == want[off, 15]) | (spread[:, 15] > 0)
+                    if not ((r_plain > 1) & (r_kernel <= CHAOS_FACTOR * r_plain)).all() \
+                            or not flag_ok.all():
+                        raise AssertionError(
+                            f"K7 {kind} B={batch}: envs {off.tolist()}: kernel off by "
+                            f"{r_kernel.tolist()} bounds, the plain version's one-ulp spread "
+                            f"{r_plain.tolist()} bounds")
+                    note = (f"; {len(off)} chaotic envs, kernel off by up to "
+                            f"{r_kernel.max().item():.1f} bounds where one-ulp nudges move the "
+                            f"plain version by up to {r_plain.max().item():.1f} (kernel/plain "
+                            f"ratio at most {(r_kernel / r_plain).max().item():.2f})")
+                    keep = torch.ones(batch, dtype=torch.bool, device=self.device)
+                    keep[off] = False
+                    diff = diff[keep]
+                errs = {name: diff[:, sl].max().item() for name, (sl, _) in K7_BOUNDS.items()}
+                self.errors["contact_scan"] = max(self.errors["contact_scan"], *errs.values())
+                log(f"[check] contact_scan   {kind:12s} B={batch:4d} n={K7_SUBSTEPS}: "
+                    + ", ".join(f"{k} {v:.2e}" for k, v in errs.items())
+                    + f"{note}; gripper contact in {int(got[:, 15].sum())} envs; "
+                    "two launches bit-identical ok")
+
+    # -- phase 8: the env path ------------------------------------------------------
+    def env_path(self, env, gen):
+        """reset -> ENV_STEPS expert steps -> retract at ENV_BATCH, counting
+        K7 launches call by call. Returns the state after the steps."""
+        cs = self.cs
+        total = 0
+
+        def counted(name, expect, fn):
+            nonlocal total
+            self.reset_counts()
+            out = fn()
+            torch.cuda.synchronize()
+            counts = self.counts()
+            want = {k: 0 for k in counts}
+            want["contact_scan"] = expect
+            if counts != want:
+                raise AssertionError(f"{name}: launches {counts}, expected {want}")
+            total += counts["contact_scan"]
+            return out
+
+        state, obs = counted("reset", RESET_K7, lambda: env.reset(ENV_BATCH, gen))
+        valid = state.valid_scene
+        for i in range(ENV_STEPS):
+            state, obs, _, done, info = counted(
+                f"step {i}", STEP_K7,
+                lambda: env.step_batched(state, env.expert_action(state), gen))
+        stepped = state
+        state, lifted = counted("retract", RETRACT_K7, lambda: env.retract_batched(state))
+        self.launches["contact_scan"] = total
+        for name, t in (("pos", state.phys.obj.pos), ("quat", state.phys.obj.quat),
+                        ("linvel", state.phys.obj.linvel), ("angvel", state.phys.obj.angvel),
+                        ("q", state.phys.arm.q), ("point_state", obs.point_state),
+                        ("goal_pose", obs.goal_pose)):
+            if not torch.isfinite(t).all():
+                raise AssertionError(f"env path: non-finite {name}")
+        # the ejection guard: an object above 1 m must be one the gripper
+        # carries (touching it, its centre within HELD_RADIUS of the hand).
+        # The expert can carry a light object up before the retract: a
+        # collision freezes the goal in the object's frame
+        # (grasp_env.py _update_goal), so the servo chases an object that
+        # sits in its own fingers, as the JAX package does
+        z = state.phys.obj.pos[:, 2]
+        hand = env._hand(state)[:, :3, 3]
+        held = state.phys.gripper_contact & (
+            (state.phys.obj.pos - hand).norm(dim=-1) < HELD_RADIUS)
+        if not ((z < 1.0) | held).all():
+            raise AssertionError(f"env path: object ejected, max z {z[~held].max().item():.3f}")
+        n_valid = int(valid.sum())
+        if n_valid == 0:
+            raise AssertionError("env path: no valid scene")
+        rate = lifted[valid].mean().item()
+        log(f"[env] B={ENV_BATCH}: reset launched K7 {RESET_K7}x, each of {ENV_STEPS} expert "
+            f"steps 1x, retract {RETRACT_K7}x ({total} in all); valid scenes {n_valid} of "
+            f"{ENV_BATCH}; lift rate over valid scenes {rate:.4f} "
+            f"({int(lifted[valid].sum())} of {n_valid}); all values finite; max object z "
+            f"{z.max().item():.4f}; done after {ENV_STEPS} steps in "
+            f"{int(done.sum())} envs; mean points in view {obs.num_points.float().mean():.1f}; "
+            f"{int((z >= 1.0).sum())} objects above 1 m, all carried in the gripper")
+        return stepped
+
+    def env_timings(self, env, gen, stepped):
+        """Host-clock times of the env entry points at ENV_BATCH and K7's
+        time against its plain version and bound. Returns K7's totals."""
+        d = self.device
+        state, _ = env.reset(ENV_BATCH, gen)
+        act = torch.tensor([0.0, 0.0, 0.02, 0.0, 0.0, 0.0], device=d).repeat(ENV_BATCH, 1)
+        call = lambda: env.step_batched(state, act, gen)
+        ms = host_ms(call, reps=7)
+        log(f"[time] step_batched B={ENV_BATCH}: {ms:.3f} ms per step (host clock, synchronised, "
+            f"median of 7 after a warm-up; bench.py's constant action), "
+            f"{ENV_BATCH / ms * 1e3:.1f} env steps/s")
+        busy, rows, _, launches = device_profile(call, calls=3, count=True)
+        if busy == 0:
+            log("[profile] step_batched: device time not measured "
+                "(the profiler saw no device activity)")
+        else:
+            k7 = sum(t for name, t in rows if "contact_scan_kernel" in name)
+            log(f"[profile] step_batched B={ENV_BATCH}: device busy {busy:.3f} ms per step, idle "
+                f"share {max(0.0, 1 - busy / ms):.3f} of the host-clock step; K7 {k7:.3f} ms; "
+                f"{launches:.0f} device activities per step of {len(rows)} kinds, "
+                f"{ms / launches * 1e3:.1f} us of host time each")
+            for name, t in rows[:8]:
+                log(f"[profile]   {t:.4f} ms  {name[:100]}")
+        reset_ms = host_ms(lambda: env.reset(ENV_BATCH, gen), reps=3)
+        retract_ms = host_ms(lambda: env.retract_batched(stepped), reps=3)
+        log(f"[time] reset B={ENV_BATCH}: {reset_ms:.3f} ms; retract_batched B={ENV_BATCH}: "
+            f"{retract_ms:.3f} ms (host clock, synchronised, median of 3 after a warm-up)")
+        n = 75
+        p, args = self.scan_args(*self.k7_live, n)
+        kms = cuda_ms(lambda: self.cs.contact_scan(p, n, *args), reps=5, rounds=5)
+        plain = cuda_ms(lambda: self.cs.contact_scan_reference(p, n, *args), reps=1, rounds=3)
+        nbytes, flops = contact_scan_work(args, n)
+        bms, by = bound_ms(nbytes, flops)
+        log(f"[time] contact_scan B={ENV_BATCH} n={n}: kernel {kms:.4f} ms, plain {plain:.4f} ms, "
+            f"bound {bms:.6f} ms ({by}; {nbytes} B, {flops} FLOP)")
+        return {"ms": kms, "plain_ms": plain, "bytes": nbytes, "flops": flops}
+
+    # -- phase 9: the env on the card against the CPU --------------------------------------
+    def env_card_vs_cpu(self, env, env_cpu):
+        """8 scenes through reset_scene, 3 step_batched calls (each from the
+        CPU's state) and retract_batched on both devices, with CPU
+        generators in the same state on both sides. An env whose object
+        is off the phase-7 bounds must be chaotic: the CPU path itself,
+        run again with the object position nudged by one ulp, moves at
+        least 1/CHAOS_FACTOR as far (in units of the bounds)."""
+        from gaddpg_tpu_torch.physics.types import map_tensors
+
+        b = 8
+        scene = env_cpu.sample_scene(b, torch.Generator().manual_seed(3))
+        gens = [torch.Generator().manual_seed(4) for _ in range(2)]
+        card = lambda x: {k: v.to(self.device) for k, v in x.items()}
+        nudge_gen = torch.Generator().manual_seed(13)
+        rep = lambda t, envs: t[envs].repeat(ULP_PROBES, *([1] * (t.dim() - 1)))
+
+        def nudge(pos):
+            return torch.nextafter(pos, pos + torch.randn(pos.shape, generator=nudge_gen).sign())
+
+        def reset_probe(envs):
+            sub = {k: rep(v, envs) for k, v in scene.items()}
+            sub["obj_pos"] = nudge(sub["obj_pos"])
+            return env_cpu.reset_scene(sub)[0]
+
+        st_g, ob_g = env.reset_scene(card(scene), gens[0])
+        st_c, ob_c = env_cpu.reset_scene(scene, gens[1])
+        worst, chaotic = self.compare_env("reset", st_g, ob_g, st_c, ob_c, 1e-6, reset_probe)
+        for i in range(3):
+            prev, acts = st_c, env_cpu.expert_action(st_c)
+            got = env.step_batched(prev.to(self.device), acts.to(self.device), gens[0])
+            st_c, ob_c, _, done_c, _ = env_cpu.step_batched(prev, acts, gens[1])
+
+            def step_probe(envs, prev=prev, acts=acts):
+                sub = nudge_state(map_tensors(prev, lambda t: rep(t, envs)), nudge)
+                return env_cpu.step_batched(sub, rep(acts, envs))[0]
+
+            w, c = self.compare_env(f"step {i}", got[0], got[1], st_c, ob_c,
+                                    2 * ARM_SERVO_QUANTUM, step_probe)
+            worst, chaotic = max(worst, w), chaotic | c
+        lift_g = env.retract_batched(st_c.to(self.device))[1].cpu()
+        lift_c = env_cpu.retract_batched(st_c)[1]
+        differ = (lift_g != lift_c).nonzero()[:, 0]
+        if len(differ):
+            probe = env_cpu.retract_batched(nudge_state(map_tensors(st_c, lambda t: rep(t, differ)),
+                                                        nudge))[1]
+            flips = (probe.view(ULP_PROBES, -1) != lift_c[differ]).any(dim=0)
+            if not flips.all():
+                raise AssertionError(f"env card vs CPU: lifts {lift_g.tolist()} vs "
+                                     f"{lift_c.tolist()}, not from a chaotic grasp")
+        log(f"[env] card vs CPU, 8 scenes: reset, 3 steps, retract agree; largest point-state "
+            f"share without a match {worst:.4f} (bound {POINT_SHARE_BOUND}); chaotic envs "
+            f"{chaotic.nonzero()[:, 0].tolist()}; lifts card {lift_g.tolist()}, CPU "
+            f"{lift_c.tolist()} ({len(differ)} differ, each flipped by a one-ulp nudge) ok")
+
+    def compare_env(self, label, st_g, ob_g, st_c, ob_c, arm_tol, probe):
+        """Card against CPU after one env call. Returns (largest point-state
+        share without a match, the (B,) mask of chaotic envs)."""
+        g = st_g.to("cpu")
+        r_card = physics_ratio(g.phys, st_c.phys)
+        flags = lambda s: torch.stack([s.phys.gripper_contact, s.collided, s.done], dim=1)
+        flag_off = (flags(g) != flags(st_c)).any(dim=1)
+        off = (r_card > 1) | flag_off
+        chaotic = torch.zeros_like(off)
+        spread_note = ""
+        if off.any():
+            envs = off.nonzero()[:, 0]
+            probes = probe(envs)
+            n = len(envs)
+            ref = map_state(st_c, envs)
+            r_plain = physics_ratio(probes.phys, repeat_state(ref, ULP_PROBES).phys
+                                    ).view(ULP_PROBES, n).amax(dim=0)
+            flipped = (flags(probes).view(ULP_PROBES, n, 3) != flags(ref)).any(dim=(0, 2))
+            ok = ((r_card[envs] <= CHAOS_FACTOR * r_plain) & (r_plain > 1)) | (
+                (r_card[envs] <= 1) & flipped)
+            ok &= ~flag_off[envs] | flipped
+            if not ok.all():
+                raise AssertionError(
+                    f"env card vs CPU {label}: envs {envs.tolist()} off by {r_card[envs].tolist()} "
+                    f"bounds (flags differ: {flag_off[envs].tolist()}); one-ulp nudges of the CPU "
+                    f"path move them by {r_plain.tolist()} (flags flip: {flipped.tolist()})")
+            chaotic[envs] = True
+            spread_note = (f" (card off by {[round(x, 2) for x in r_card[envs].tolist()]} "
+                           f"bounds, one-ulp spread of the CPU path "
+                           f"{[round(x, 1) for x in r_plain.tolist()]})")
+        keep = ~chaotic
+        errs = {"object_and_fingers": r_card[keep].max().item() if keep.any() else 0.0}
+        errs["arm_q"] = (g.phys.arm.q[:, :7] - st_c.phys.arm.q[:, :7]).abs().max().item()
+        errs["goal_obj"] = (g.goal_obj - st_c.goal_obj).abs().max().item()
+        if errs["arm_q"] > arm_tol or errs["goal_obj"] > 1e-4:
+            raise AssertionError(f"env card vs CPU {label}: {errs}")
+        if not torch.equal(g.valid_scene, st_c.valid_scene):
+            raise AssertionError(f"env card vs CPU {label}: valid_scene differs")
+        # a chaotic env's object sits elsewhere: its view is not compared
+        n_g, n_c = ob_g.num_points.cpu()[keep], ob_c.num_points[keep]
+        if not ((n_g - n_c).abs() <= 0.01 * n_c + 2).all():
+            raise AssertionError(f"env card vs CPU {label}: points {n_g.tolist()} vs {n_c.tolist()}")
+        # the card's sampled points against the CPU's reservoir, world frame
+        hand = ob_g.ef_pose.cpu()
+        pts = (ob_g.point_state.cpu()[:, :3, 6:].transpose(1, 2)
+               @ hand[:, :3, :3].transpose(1, 2) + hand[:, None, :3, 3])
+        nv = torch.clamp(st_c.pc.count, max=st_c.pc.points.shape[1])
+        share = nn_miss_share(pts[keep], [r[:k] for r, k, h in zip(st_c.pc.points, nv, keep) if h])
+        if share and max(share) > POINT_SHARE_BOUND:
+            raise AssertionError(f"env card vs CPU {label}: point-state shares {share}")
+        worst = max(share, default=0.0)
+        log(f"[env] card vs CPU {label}: object and fingers within "
+            f"{errs['object_and_fingers']:.3f} of the phase-7 bounds, arm q {errs['arm_q']:.2e}, "
+            f"goal {errs['goal_obj']:.2e}; chaotic envs {chaotic.nonzero()[:, 0].tolist()}"
+            f"{spread_note}; "
+            f"points {n_g.tolist()} vs {n_c.tolist()}; unmatched share max {worst:.4f} ok")
+        return worst, chaotic
+
+
     def kernel_line(self, totals):
         rows = []
         for kernel in self.wrappers:
@@ -844,6 +1331,18 @@ def main() -> int:
             totals = smoke.timings(select, inputs, gen)
         smoke.learner(gen)
         totals.update(smoke.train_timings(gen))
+        with torch.no_grad():
+            from gaddpg_tpu_torch.envs.assets import library_from_index
+            from gaddpg_tpu_torch.envs.grasp_env import EnvParams, PandaGraspEnv
+
+            lib = library_from_index("ycb", "train")
+            env = PandaGraspEnv(EnvParams(use_planner=False), lib)  # device="cuda"
+            env_cpu = PandaGraspEnv(EnvParams(use_planner=False), lib, device="cpu")
+            env_gen = torch.Generator(device="cuda").manual_seed(7)
+            smoke.check_contact_scan(env, env_gen)
+            stepped = smoke.env_path(env, env_gen)
+            totals["contact_scan"] = smoke.env_timings(env, env_gen, stepped)
+            smoke.env_card_vs_cpu(env, env_cpu)
         line = smoke.kernel_line(totals)
     except Exception:  # report which phase failed, then fail the run
         traceback.print_exc()

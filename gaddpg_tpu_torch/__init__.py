@@ -1,8 +1,8 @@
 """PyTorch + CUDA port of `gaddpg_tpu` for NVIDIA Hopper (H100).
 
 The layout mirrors the JAX package, so each module's counterpart sits at
-the same relative path. This package imports torch and numpy only, never
-JAX or anything of `gaddpg_tpu`.
+the same relative path. This package imports torch, numpy and scipy
+only, never JAX or anything of `gaddpg_tpu`.
 
 What is ported so far:
 - the policy-serving path: a (B, 4, 1030) point state -> PointNet++
@@ -10,11 +10,14 @@ What is ported so far:
   `deploy.runner.PolicyRunner`);
 - the learner: the train-mode encoder (batch-statistics BatchNorm), the
   twin-Q critic, the losses, the optimizers and the DDPG and BC updates
-  (`agents.ddpg.make_ddpg_update`, `agents.bc.make_bc_update`).
-Their six point-cloud kernels (furthest point sampling, ball query, the
-two eval set-abstraction kernels and the two train-mode stats kernels)
-are hand-written CUDA C++ for sm_90a under `ops/csrc/`, built with nvcc
-at first use.
+  (`agents.ddpg.make_ddpg_update`, `agents.bc.make_bc_update`);
+- the batched env: reset, DLS IK, contact physics, wrist-camera point
+  state, retract and the goal-servo expert (`envs.grasp_env.PandaGraspEnv`
+  with `use_planner=False`, single-object scenes).
+Their seven kernels (furthest point sampling, ball query, the two eval
+set-abstraction kernels, the two train-mode stats kernels and the
+physics contact scan) are hand-written CUDA C++ for sm_90a under
+`ops/csrc/`, built with nvcc at first use.
 
 Entry points default to `device="cuda"` and raise when no card is
 present; pass `device="cpu"` to run the plain PyTorch versions of the

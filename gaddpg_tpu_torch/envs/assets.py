@@ -1,0 +1,437 @@
+"""Procedural object library: sphere sets, surface points, grasp
+databases (counterpart of gaddpg_tpu/envs/assets.py, the built-in proxy
+libraries).
+
+The reference's YCB / ShapeNet meshes and ACRONYM grasps are not
+vendored, so objects are parameterised proxies with the published names
+and dimensions: boxes, solid cylinders and hollow cylinders. Contact
+geometry is a padded sphere set, render geometry surface samples, and
+the grasp database antipodal hand poses in the object frame
+(reference: env/panda_scene.py:523-573, 1252-1255). The builders are
+seeded numpy (`RandomState(0)` / `(1)`), the JAX package's code, so both
+packages build the same library; `ObjectLibrary` holds float32 tensors
+as the JAX package holds float32 arrays.
+
+Grasp frame convention: hand +z approaches the object, fingers close
+along hand +-y, the closing point sits `GRASP_DEPTH` ahead of the hand
+origin along +z.
+"""
+
+import dataclasses
+from typing import List, Sequence, Tuple
+
+import numpy as np
+import torch
+
+GRASP_DEPTH = 0.10          # hand origin -> closing point along +z
+GRIPPER_MAX_WIDTH = 0.078   # usable opening (0.08 minus margin)
+
+NS = 32    # spheres per object (padded; contact cost is linear in NS)
+NP = 1024  # surface points per object (padded; point-splat render density)
+NG = 64    # grasps per object (padded)
+NC = 12    # coarse spheres per object (object<->object contact proxies)
+
+
+def coarse_sphere_subset(sph: np.ndarray, target: int = NC) -> np.ndarray:
+    """Greedy farthest-point subset of a sphere set (host-side).
+
+    Object-object contact (physics/multi.py) runs on NC x NC sphere
+    pairs per body pair; a dozen well-spread spheres capture the shape
+    at ~7x less contact work than the full NS set. Starts from the
+    largest sphere, then maximizes center spread. Padding rows are
+    radius 0 parked at z=1e3, like the NS padding.
+    """
+    sph = np.asarray(sph, dtype=np.float64)
+    live = sph[sph[:, 3] > 0]
+    out = np.zeros((target, 4))
+    out[:, 2] = 1e3
+    if len(live) == 0:
+        return out
+    chosen = [int(np.argmax(live[:, 3]))]
+    d = np.linalg.norm(live[:, :3] - live[chosen[0], :3], axis=1)
+    while len(chosen) < min(target, len(live)):
+        i = int(np.argmax(d))
+        if d[i] <= 0 and len(chosen) >= 1:
+            break
+        chosen.append(i)
+        d = np.minimum(d, np.linalg.norm(live[:, :3] - live[i, :3], axis=1))
+    out[: len(chosen)] = live[chosen]
+    return out
+
+
+@dataclasses.dataclass
+class AssetSpec:
+    name: str
+    kind: str                  # 'box' | 'cylinder' | 'hollow'
+    dims: Tuple[float, ...]    # box: full extents; cyl: (r, h); hollow: (r, h, wall)
+    mass: float
+
+
+def _box_spheres(half, target=NS):
+    """Grid-fill a box with spheres flush to the faces.
+
+    Center spacing <= sphere radius wherever the budget allows, so flat
+    faces stay flat to the finger pads (edge-only contacts make grasps
+    torquey and unstable).
+    """
+    half = np.asarray(half)
+    r = float(min(half.min(), 0.015))
+    # spacing (2h-2r)/(c-1) <= r  =>  c >= 2h/r - 1
+    counts = np.maximum(1, np.minimum(5, np.ceil(2 * half / r - 1 + 1e-6).astype(int)))
+    while np.prod(counts) > target:
+        counts[np.argmax(counts)] -= 1
+    axes = [
+        np.linspace(-h + r, h - r, c) if c > 1 else np.array([0.0])
+        for h, c in zip(half, counts)
+    ]
+    grid = np.stack(np.meshgrid(*axes, indexing="ij"), axis=-1).reshape(-1, 3)
+    return np.concatenate([grid, np.full((len(grid), 1), r)], axis=-1)
+
+
+def _cyl_spheres(r, h, target=NS):
+    rs = float(min(r, h / 2, 0.02))
+    n_z = max(1, min(6, int(round(h / (2 * rs)))))
+    zs = np.linspace(-h / 2 + rs, h / 2 - rs, n_z) if n_z > 1 else np.array([0.0])
+    rows = []
+    for z in zs:
+        rows.append([0.0, 0.0, z, rs])
+        ring_r = r - rs
+        if ring_r > rs * 0.5:
+            n_ring = min(8, max(4, int(round(2 * np.pi * ring_r / (2 * rs)))))
+            for k in range(n_ring):
+                a = 2 * np.pi * k / n_ring
+                rows.append([ring_r * np.cos(a), ring_r * np.sin(a), z, rs])
+    rows = np.asarray(rows)
+    if len(rows) > target:
+        rows = rows[np.linspace(0, len(rows) - 1, target).astype(int)]
+    return rows
+
+
+def _hollow_spheres(r, h, wall, target=NS):
+    """Wall annulus + bottom disk (bowl/mug).
+
+    The top (rim) ring must be dense enough that a 2.2 cm finger pad
+    always straddles at least one sphere -- rim pinches are THE grasp
+    for these objects, so the rim gets most of the budget.
+    """
+    rs = float(max(wall / 2, 0.006))
+    ring_r = r - rs
+    rows = []
+    # rim ring: spacing <= 1.5 cm along the circumference
+    n_rim = max(8, int(np.ceil(2 * np.pi * ring_r / 0.015)))
+    n_rim = min(n_rim, target - 10)
+    for k in range(n_rim):
+        a = 2 * np.pi * k / n_rim
+        rows.append([ring_r * np.cos(a), ring_r * np.sin(a), h / 2 - rs, rs])
+    # mid wall ring (side support)
+    for k in range(6):
+        a = 2 * np.pi * k / 6 + 0.3
+        rows.append([ring_r * np.cos(a), ring_r * np.sin(a), 0.0, rs])
+    # bottom disk
+    rows.append([0.0, 0.0, -h / 2 + rs, rs])
+    for k in range(3):
+        a = 2 * np.pi * k / 3
+        rr = ring_r * 0.6
+        rows.append([rr * np.cos(a), rr * np.sin(a), -h / 2 + rs, rs])
+    rows = np.asarray(rows)
+    if len(rows) > target:
+        rows = rows[np.linspace(0, len(rows) - 1, target).astype(int)]
+    return rows
+
+
+def _box_surface(half, n=NP, rng=None):
+    rng = rng or np.random.RandomState(0)
+    half = np.asarray(half)
+    areas = np.array([half[1] * half[2], half[0] * half[2], half[0] * half[1]]) * 2
+    probs = np.repeat(areas, 2)
+    probs = probs / probs.sum()
+    face = rng.choice(6, size=n, p=probs)
+    uv = rng.uniform(-1, 1, (n, 2))
+    pts = np.zeros((n, 3))
+    axis = face // 2
+    sign = np.where(face % 2 == 0, 1.0, -1.0)
+    for i in range(n):
+        a = axis[i]
+        others = [j for j in range(3) if j != a]
+        pts[i, a] = sign[i] * half[a]
+        pts[i, others[0]] = uv[i, 0] * half[others[0]]
+        pts[i, others[1]] = uv[i, 1] * half[others[1]]
+    return pts
+
+
+def _cyl_surface(r, h, n=NP, rng=None, hollow=False, wall=0.0):
+    rng = rng or np.random.RandomState(1)
+    side_area = 2 * np.pi * r * h
+    cap_area = np.pi * r * r * (1 if hollow else 2)
+    p_side = side_area / (side_area + cap_area)
+    pts = np.zeros((n, 3))
+    for i in range(n):
+        if rng.rand() < p_side:
+            a = rng.uniform(0, 2 * np.pi)
+            z = rng.uniform(-h / 2, h / 2)
+            rr = r if (not hollow or rng.rand() < 0.5) else r - wall
+            pts[i] = [rr * np.cos(a), rr * np.sin(a), z]
+        else:
+            a = rng.uniform(0, 2 * np.pi)
+            rr = r * np.sqrt(rng.rand())
+            z = -h / 2 if hollow else (h / 2 if rng.rand() < 0.5 else -h / 2)
+            pts[i] = [rr * np.cos(a), rr * np.sin(a), z]
+    return pts
+
+
+def _grasp_pose(center, approach, closing):
+    """4x4 hand pose from grasp center, approach (+z), closing (+y)."""
+    z = approach / np.linalg.norm(approach)
+    y = closing - z * np.dot(closing, z)
+    y = y / np.linalg.norm(y)
+    x = np.cross(y, z)
+    T = np.eye(4)
+    T[:3, 0], T[:3, 1], T[:3, 2] = x, y, z
+    T[:3, 3] = center - GRASP_DEPTH * z
+    return T
+
+
+# How deep the closing point sits past the approach-facing surface.
+# Bounded by palm clearance: palm front face is GRASP_DEPTH - 0.058 =
+# 0.042 m behind the closing point, so depth <= ~0.03 keeps the palm
+# clear of the object.
+MAX_INSERT_DEPTH = 0.030
+
+
+def _box_grasps(half, max_g=NG):
+    """Antipodal pinches near the approach-facing surface of a box."""
+    grasps = []
+    half = np.asarray(half)
+    for close_ax in range(3):
+        width = 2 * half[close_ax]
+        if width > GRIPPER_MAX_WIDTH:
+            continue
+        for appr_ax in range(3):
+            if appr_ax == close_ax:
+                continue
+            free_ax = 3 - close_ax - appr_ax
+            depth = min(MAX_INSERT_DEPTH, float(half[appr_ax]))
+            for sgn in (1.0, -1.0):
+                approach = np.zeros(3)
+                approach[appr_ax] = -sgn  # approach toward the +sgn face
+                # centered along the free axis: offset pinches land the
+                # 2.2 cm pad asymmetrically and topple the object
+                offsets = [0.0]
+                for off in offsets:
+                    center = np.zeros(3)
+                    center[appr_ax] = sgn * (half[appr_ax] - depth)
+                    center[free_ax] = off
+                    closing = np.zeros(3)
+                    closing[close_ax] = 1.0
+                    grasps.append(_grasp_pose(center, approach, closing))
+                    grasps.append(_grasp_pose(center, approach, -closing))
+    return grasps[:max_g]
+
+
+def _cyl_grasps(r, h, max_g=NG, hollow=False, wall=0.0):
+    grasps = []
+    if 2 * r <= GRIPPER_MAX_WIDTH:
+        # side pinches across the diameter at several heights/azimuths
+        for z in np.linspace(-0.3, 0.3, 3) * h:
+            for k in range(6):
+                a = 2 * np.pi * k / 6
+                radial = np.array([np.cos(a), np.sin(a), 0.0])
+                closing = np.array([-np.sin(a), np.cos(a), 0.0])
+                grasps.append(_grasp_pose(np.array([0, 0, z]), -radial, closing))
+        # top-down with closing across the diameter, pinching near the top
+        depth = min(MAX_INSERT_DEPTH, h / 2)
+        for k in range(4):
+            a = np.pi * k / 4
+            closing = np.array([np.cos(a), np.sin(a), 0.0])
+            grasps.append(
+                _grasp_pose(
+                    np.array([0, 0, h / 2 - depth]), np.array([0, 0, -1.0]), closing
+                )
+            )
+    if hollow:
+        # rim pinch: close across the wall, approach top-down
+        ring_r = r - wall / 2
+        depth = min(MAX_INSERT_DEPTH, h / 2)
+        for k in range(8):
+            a = 2 * np.pi * k / 8
+            center = np.array([ring_r * np.cos(a), ring_r * np.sin(a), h / 2 - depth])
+            closing = np.array([np.cos(a), np.sin(a), 0.0])
+            grasps.append(_grasp_pose(center, np.array([0, 0, -1.0]), closing))
+    return grasps[:max_g]
+
+
+# ---------------------------------------------------------------------------
+# Named libraries mirroring the reference object splits
+# ---------------------------------------------------------------------------
+
+def ycb_proxy_specs() -> List[AssetSpec]:
+    """Proxies for experiments/object_index/ycb_large.json with published
+    YCB dimensions/masses."""
+    return [
+        AssetSpec("003_cracker_box", "box", (0.060, 0.158, 0.210), 0.411),
+        AssetSpec("004_sugar_box", "box", (0.038, 0.089, 0.175), 0.514),
+        AssetSpec("005_tomato_soup_can", "cylinder", (0.033, 0.101), 0.349),
+        AssetSpec("006_mustard_bottle", "cylinder", (0.032, 0.190), 0.603),
+        AssetSpec("021_bleach_cleanser", "cylinder", (0.034, 0.250), 1.131),
+        AssetSpec("019_pitcher_base", "cylinder", (0.054, 0.242), 0.178),
+        AssetSpec("010_potted_meat_can", "box", (0.057, 0.097, 0.082), 0.370),
+        AssetSpec("024_bowl", "hollow", (0.080, 0.055, 0.008), 0.147),
+        AssetSpec("025_mug", "hollow", (0.047, 0.081, 0.007), 0.118),
+        AssetSpec("061_foam_brick", "box", (0.050, 0.075, 0.050), 0.028),
+    ]
+
+
+def extra_shape_specs(seed: int = 0, n_boxes: int = 16, n_cyls: int = 15) -> List[AssetSpec]:
+    """Random graspable primitives mirroring extra_shape.json's box/cyl set."""
+    rng = np.random.RandomState(seed)
+    specs = []
+    for i in range(n_boxes):
+        w = rng.uniform(0.03, 0.075)
+        d = rng.uniform(0.03, 0.12)
+        h = rng.uniform(0.05, 0.20)
+        specs.append(AssetSpec(f"box_box{i:03d}", "box", (w, d, h), 0.2 * w * d * h / 3e-4))
+    for i in range(n_cyls):
+        r = rng.uniform(0.015, 0.037)
+        h = rng.uniform(0.05, 0.22)
+        specs.append(AssetSpec(f"box_cylinder{i:03d}", "cylinder", (r, h), 0.25))
+    return specs
+
+
+@dataclasses.dataclass
+class ObjectLibrary:
+    """Padded per-object tensors (O = number of objects)."""
+
+    names: List[str]
+    spheres: torch.Tensor         # (O, NS, 4) centres + radius, radius 0 = pad
+    coarse_spheres: torch.Tensor  # (O, NC, 4) subset for object-object contact
+    surface_points: torch.Tensor  # (O, NP, 3)
+    extents: torch.Tensor         # (O, 3) full extents
+    mass: torch.Tensor            # (O,)
+    inertia: torch.Tensor         # (O, 3) diagonal body-frame inertia
+    grasps: torch.Tensor          # (O, NG, 4, 4)
+    grasp_valid: torch.Tensor     # (O, NG) bool
+    rest_height: torch.Tensor     # (O,) centre height resting upright
+
+    @property
+    def num_objects(self) -> int:
+        return len(self.names)
+
+    def to(self, device) -> "ObjectLibrary":
+        return dataclasses.replace(self, **{
+            k: getattr(self, k).to(device) for k in LIBRARY_FIELDS})
+
+
+LIBRARY_FIELDS = (
+    "spheres", "coarse_spheres", "surface_points", "extents", "mass",
+    "inertia", "grasps", "grasp_valid", "rest_height",
+)
+
+
+def library_from_arrays(names, **arrays) -> ObjectLibrary:
+    """An ObjectLibrary from numpy arrays of every field in LIBRARY_FIELDS
+    (for example the fields of the JAX package's library): bool stays
+    bool, every other field becomes float32."""
+    missing = set(LIBRARY_FIELDS) - set(arrays)
+    if missing:
+        raise ValueError(f"library_from_arrays: missing {sorted(missing)}")
+    conv = {}
+    for k in LIBRARY_FIELDS:
+        a = np.asarray(arrays[k])
+        conv[k] = torch.as_tensor(np.array(a, dtype=bool if a.dtype == bool else np.float32))
+    return ObjectLibrary(names=list(names), **conv)
+
+
+def _build_one(spec: AssetSpec):
+    if spec.kind == "box":
+        half = np.asarray(spec.dims) / 2.0
+        spheres = _box_spheres(half)
+        surface = _box_surface(half)
+        grasps = _box_grasps(half)
+        extents = np.asarray(spec.dims)
+        inertia = spec.mass / 12.0 * np.array(
+            [
+                extents[1] ** 2 + extents[2] ** 2,
+                extents[0] ** 2 + extents[2] ** 2,
+                extents[0] ** 2 + extents[1] ** 2,
+            ]
+        )
+        rest_h = half[2]
+    elif spec.kind == "cylinder":
+        r, h = spec.dims
+        spheres = _cyl_spheres(r, h)
+        surface = _cyl_surface(r, h)
+        grasps = _cyl_grasps(r, h)
+        extents = np.array([2 * r, 2 * r, h])
+        izz = 0.5 * spec.mass * r * r
+        ixx = spec.mass / 12.0 * (3 * r * r + h * h)
+        inertia = np.array([ixx, ixx, izz])
+        rest_h = h / 2
+    elif spec.kind == "hollow":
+        r, h, wall = spec.dims
+        spheres = _hollow_spheres(r, h, wall)
+        surface = _cyl_surface(r, h, hollow=True, wall=wall)
+        grasps = _cyl_grasps(r, h, hollow=True, wall=wall)
+        extents = np.array([2 * r, 2 * r, h])
+        izz = spec.mass * r * r
+        ixx = spec.mass / 12.0 * (3 * r * r + h * h) + 0.5 * izz
+        inertia = np.array([ixx, ixx, izz])
+        rest_h = h / 2
+    else:
+        raise ValueError(spec.kind)
+
+    # padding spheres: radius 0 AND parked far above the scene so they can
+    # never register phantom contacts inside a contact primitive
+    sph = np.zeros((NS, 4))
+    sph[:, 2] = 1e3
+    sph[: len(spheres)] = spheres[:NS]
+    surf = np.zeros((NP, 3))
+    surf[: len(surface)] = surface[:NP]
+    if len(surface) < NP:
+        surf[len(surface):] = surface[np.arange(NP - len(surface)) % len(surface)]
+    g = np.tile(np.eye(4), (NG, 1, 1))
+    gv = np.zeros(NG, bool)
+    for i, gp in enumerate(grasps[:NG]):
+        g[i] = gp
+        gv[i] = True
+    # inertia floor keeps the implicit integrator well-conditioned
+    inertia = np.maximum(inertia, 1e-5)
+    coarse = coarse_sphere_subset(sph)
+    return sph, surf, extents, spec.mass, inertia, g, gv, rest_h, coarse
+
+
+def build_library(specs: Sequence[AssetSpec]) -> ObjectLibrary:
+    if not specs:
+        raise ValueError("build_library: no specs")
+    rows = [_build_one(s) for s in specs]
+    stack = lambda i: np.stack([r[i] for r in rows])
+    return library_from_arrays(
+        [s.name for s in specs],
+        spheres=stack(0), coarse_spheres=stack(8), surface_points=stack(1),
+        extents=stack(2), mass=np.array([r[3] for r in rows]), inertia=stack(4),
+        grasps=stack(5), grasp_valid=stack(6), rest_height=np.array([r[7] for r in rows]),
+    )
+
+
+def library_from_index(index: str = "ycb", split: str = "train") -> ObjectLibrary:
+    """The built-in proxy library named after a reference object index:
+    "ycb" (experiments/object_index/ycb_large.json; the test split drops
+    the pitcher) or "extra_shape". Mesh and procedural indexes are not
+    ported."""
+    if index == "ycb":
+        specs = ycb_proxy_specs()
+        if split == "test":
+            specs = [s for s in specs if s.name != "019_pitcher_base"]
+    elif index == "extra_shape":
+        specs = extra_shape_specs()
+    else:
+        raise NotImplementedError(f"object index {index!r} is not ported; "
+                                  "use 'ycb' or 'extra_shape'")
+    return build_library(specs)
+
+
+def box_asset(w, d, h, mass=0.2, name="box") -> ObjectLibrary:
+    return build_library([AssetSpec(name, "box", (w, d, h), mass)])
+
+
+def cylinder_asset(r, h, mass=0.3, name="cyl") -> ObjectLibrary:
+    return build_library([AssetSpec(name, "cylinder", (r, h), mass)])

@@ -1,0 +1,504 @@
+"""PandaGraspEnv: the batched 6-DoF grasping env (counterpart of
+gaddpg_tpu/envs/grasp_env.py, single-object scenes with the goal-servo
+expert).
+
+One env step, for a batch of B envs at once:
+
+    task-space delta action -> warm-started DLS IK -> joint servo targets
+    -> `substeps` physics substeps (K7 on the card) -> wrist-camera point
+    render -> accumulation -> 4 x 1030 point state -> termination
+
+World frame: robot base at the origin on the table plane (z = 0);
+objects spawn at x 0.5-0.6, y +-0.125 (reference:
+env/panda_gripper_hand_camera.py:32, env/panda_scene.py:1000-1001).
+
+Randomness: `reset` and `step_batched` draw from a `torch.Generator`, or
+take the exact draws as tensors (`draws=`), so the JAX package's
+`jax.random` draws can be injected for parity. The per-env `step` /
+`retract` / `step_joint`, the CHOMP planner (`use_planner`), clutter
+(`num_clutter`) and image observations (`use_image`, `domain_rand`) are
+not ported: `PandaGraspEnv` raises NotImplementedError for them.
+"""
+
+import dataclasses
+import math
+from typing import Tuple
+
+import numpy as np
+import torch
+
+from gaddpg_tpu_torch.envs.assets import ObjectLibrary
+from gaddpg_tpu_torch.expert.goals import nearest_grasp_goal
+from gaddpg_tpu_torch.expert.servo import expert_action as servo_expert_action
+from gaddpg_tpu_torch.expert.servo import expert_plan_length
+from gaddpg_tpu_torch.geometry.se3 import (
+    pack_pose_rot_first, se3_from_quat_pos, se3_inverse, unpack_action,
+)
+from gaddpg_tpu_torch.models.heads import TASK6D_HIGH
+from gaddpg_tpu_torch.physics.fast import fast_physics_step
+from gaddpg_tpu_torch.physics.types import (
+    ArmState, BodyState, PhysicsParams, PhysicsState, map_tensors,
+)
+from gaddpg_tpu_torch.render.camera import (
+    CameraParams, box_zdepth, depth_to_points, plane_zdepth, spheres_zdepth,
+    visible_target_depth,
+)
+from gaddpg_tpu_torch.render.pointcloud import (
+    PointCloudState, accumulate_points, build_point_state, create_pc_state, num_valid,
+)
+from gaddpg_tpu_torch.robot import panda
+from gaddpg_tpu_torch.robot.ik import dls_ik, ik_from_seeds
+from gaddpg_tpu_torch.utils.constants import const
+from gaddpg_tpu_torch.utils.precision import f32_matmuls, resolve_device
+
+# camera optical frame relative to the hand: optical +z == hand +z,
+# 36 mm forward and up (reference: env/panda_scene.py:200-202, 829-861)
+T_CAM = ((1.0, 0.0, 0.0, 0.036), (0.0, 1.0, 0.0, 0.0), (0.0, 0.0, 1.0, 0.036),
+         (0.0, 0.0, 0.0, 1.0))
+TCP_OFFSET = (0.0, 0.0, 0.13)  # hand origin -> grasp point, hand frame
+
+
+@dataclasses.dataclass(frozen=True)
+class EnvParams:
+    """The JAX package's EnvParams, field for field, with its defaults."""
+
+    physics: PhysicsParams = PhysicsParams()
+    # 64x64 wrist camera: the point state is resampled to 1024 points and
+    # the reference's termination heuristic is calibrated at 64x64
+    # (reference: core/utils.py:340-343)
+    camera: CameraParams = CameraParams(width=64, height=64)
+    max_steps: int = 20                  # RL_MAX_STEP
+    uniform_num_pts: int = 1024
+    pt_accumulate_ratio: float = 0.95
+    pc_capacity: int = 2048
+    new_points_per_step: int = 512
+    init_near: float = 0.2               # ENV_NEAR
+    init_far: float = 0.5                # ENV_FAR
+    spawn_x: Tuple[float, float] = (0.50, 0.60)
+    spawn_y: Tuple[float, float] = (-0.125, 0.125)
+    num_clutter: int = 0                 # not ported: must stay 0
+    use_planner: bool = True             # CHOMP expert, not ported: pass False
+    clutter_grid_x: Tuple[float, float] = (0.45, 0.69)
+    clutter_grid_y: Tuple[float, float] = (-0.14, 0.14)
+    clutter_jitter: float = 0.015
+    # scene candidates per reset; the first valid one is kept
+    # (reference: core/train_online.py:180-188)
+    reset_tries: int = 2
+    clutter_points_per_step: int = 256
+    step_ik_iters: int = 10
+    settle_substeps: int = 200
+    termination_heuristics: bool = True
+    use_image: bool = False              # not ported
+    domain_rand: bool = False            # not ported
+    lift_height: float = 0.08            # success (reference: env/panda_scene.py:877)
+    fall_height: float = 0.03            # failure (reference: env/panda_scene.py:868)
+    retract_lift_steps: int = 10
+    retract_step_dz: float = 0.03
+
+
+@dataclasses.dataclass
+class EnvState:
+    """A batch of B env states; every field leads with B."""
+
+    phys: PhysicsState
+    pc: PointCloudState
+    obj_idx: torch.Tensor          # (B,) int64 library index
+    env_step: torch.Tensor         # (B,) int32
+    init_obj_z: torch.Tensor       # (B,)
+    goal_obj: torch.Tensor         # (B, 4, 4) grasp goal in the object frame
+    collided: torch.Tensor         # (B,) bool: gripper contact this step
+    collided_before: torch.Tensor  # (B,) bool: any contact so far
+    done: torch.Tensor             # (B,) bool
+    valid_scene: torch.Tensor      # (B,) bool
+
+    def to(self, device) -> "EnvState":
+        return map_tensors(self, lambda t: t.to(device))
+
+
+@dataclasses.dataclass
+class Observation:
+    point_state: torch.Tensor   # (B, 4, 6 + num_pts)
+    num_points: torch.Tensor    # (B,) int32 target points in the reservoir
+    joint_pos: torch.Tensor     # (B, 9)
+    ef_pose: torch.Tensor       # (B, 4, 4) hand in world
+    goal_pose: torch.Tensor     # (B, 7) [q, t] hand -> goal
+
+
+def _tensor(x, device, dtype=torch.float32):
+    """A tensor or array-like (numpy leaves of JAX arrays too) on device."""
+    if not torch.is_tensor(x):
+        x = torch.as_tensor(np.array(x))
+    return x.to(device, dtype)
+
+
+def _where(cond, a, b):
+    """Per-env select between two states or observations."""
+    if dataclasses.is_dataclass(a):
+        return dataclasses.replace(a, **{
+            f.name: _where(cond, getattr(a, f.name), getattr(b, f.name))
+            for f in dataclasses.fields(a)})
+    return torch.where(cond.reshape(-1, *([1] * (a.dim() - 1))), a, b)
+
+
+def state_from_numpy(tree, device="cpu") -> EnvState:
+    """A port EnvState from the numpy leaves of a JAX EnvState given as a
+    nested dict (`dataclasses.asdict` of the JAX state with every leaf
+    through `np.asarray`), reservoir included. Clutter, planner and
+    image fields are ignored."""
+    t = lambda x, dtype=torch.float32: _tensor(x, device, dtype)
+    ph, pc = tree["phys"], tree["pc"]
+    return EnvState(
+        phys=PhysicsState(
+            arm=ArmState(q=t(ph["arm"]["q"]), qd=t(ph["arm"]["qd"]),
+                         q_target=t(ph["arm"]["q_target"])),
+            obj=BodyState(pos=t(ph["obj"]["pos"]), quat=t(ph["obj"]["quat"]),
+                          linvel=t(ph["obj"]["linvel"]), angvel=t(ph["obj"]["angvel"])),
+            contact_force=t(ph["contact_force"]),
+            gripper_contact=t(ph["gripper_contact"], torch.bool),
+        ),
+        pc=PointCloudState(points=t(pc["points"]), labels=t(pc["labels"]),
+                           count=t(pc["count"], torch.int32),
+                           cursor=t(pc["cursor"], torch.int32)),
+        obj_idx=t(tree["obj_idx"], torch.int64),
+        env_step=t(tree["env_step"], torch.int32),
+        init_obj_z=t(tree["init_obj_z"]),
+        goal_obj=t(tree["goal_obj"]),
+        collided=t(tree["collided"], torch.bool),
+        collided_before=t(tree["collided_before"], torch.bool),
+        done=t(tree["done"], torch.bool),
+        valid_scene=t(tree["valid_scene"], torch.bool),
+    )
+
+
+class PandaGraspEnv:
+    """Static params, the object library and a device; every method
+    works on a batch of envs and leaves its inputs unchanged."""
+
+    def __init__(self, params: EnvParams, lib: ObjectLibrary, device="cuda"):
+        if params.use_planner:
+            raise NotImplementedError(
+                "use_planner=True needs the CHOMP expert (expert/chomp.py), which is not "
+                "ported yet; pass EnvParams(use_planner=False)")
+        if params.num_clutter:
+            raise NotImplementedError("num_clutter > 0 (physics/multi.py) is not ported yet")
+        if params.use_image or params.domain_rand:
+            raise NotImplementedError("image observations are not ported yet")
+        self.p = params
+        self.device = resolve_device(device)
+        self.lib = lib.to(self.device)
+        self.t_cam = const(T_CAM, self.device)
+        self.action_high = const(TASK6D_HIGH, self.device)
+
+    # ------------------------------------------------------------------
+    def _hand(self, state: EnvState):
+        return panda.fk_hand(state.phys.arm.q[:, :7])
+
+    def _obj_pose(self, obj: BodyState):
+        return se3_from_quat_pos(obj.quat, obj.pos)
+
+    def _goal_world(self, state: EnvState):
+        return self._obj_pose(state.phys.obj) @ state.goal_obj
+
+    def _box_poses(self, hand, q_l, q_r):
+        """World poses of the left pad, right pad and palm boxes
+        (gaddpg_tpu/physics/step.py:gripper_box_poses)."""
+        p = self.p.physics
+        poses = []
+        for side, q_f in ((1.0, q_l), (-1.0, q_r)):
+            t = torch.eye(4, device=hand.device).repeat(hand.shape[0], 1, 1)
+            t[:, 1, 3] = side * (q_f + p.finger_half_extents[1])
+            t[:, 2, 3] = p.finger_z_center
+            poses.append(hand @ t)
+        palm = torch.eye(4, device=hand.device)
+        palm[:3, 3] = const(p.palm_center, hand.device)
+        poses.append(hand @ palm)
+        return poses
+
+    def _occluder_depth(self, state: EnvState, hand, cam_pose):
+        """Per-pixel z-depth of the table plane, the three gripper boxes
+        and the arm's skeleton spheres up to link 7 (the reference's
+        full-scene render, reference: env/panda_scene.py:414-436)."""
+        p = self.p
+        occ = plane_zdepth(p.camera, cam_pose, p.physics.table_z)
+        fhe, phe = p.physics.finger_half_extents, p.physics.palm_half_extents
+        q = state.phys.arm.q
+        for pose, he in zip(self._box_poses(hand, q[:, 7], q[:, 8]), (fhe, fhe, phe)):
+            occ = torch.minimum(occ, box_zdepth(p.camera, cam_pose, pose, he))
+        # the link7 -> hand spheres envelop the wrist camera itself: left out
+        arm_pts = panda.arm_collision_points(q[:, :7])[:, :-3]
+        radii = const(panda.ARM_POINT_RADII, hand.device)[:-3]
+        return torch.minimum(occ, spheres_zdepth(p.camera, cam_pose, arm_pts, radii))
+
+    def _rand(self, generator, shape):
+        """Uniforms drawn on the generator's device (the global generator
+        of this env's device without one), on this env's device: two envs
+        on two devices given generators in the same state draw the same."""
+        dev = self.device if generator is None else generator.device
+        return torch.rand(shape, generator=generator, device=dev).to(self.device)
+
+    def _observe_impl(self, state: EnvState, generator=None, draws=None):
+        """(state with the new reservoir, observation, the occlusion-culled
+        target depth images that _termination reads)."""
+        p = self.p
+        b = state.obj_idx.shape[0]
+        hand = self._hand(state)
+        obj_pose = self._obj_pose(state.phys.obj)
+        surf = self.lib.surface_points[state.obj_idx]                     # (B, NP, 3)
+        surf_w = surf @ obj_pose[:, :3, :3].transpose(-1, -2) + obj_pose[:, None, :3, 3]
+        cam = hand @ self.t_cam
+        cam_inv = se3_inverse(hand @ self.t_cam)
+        occ = self._occluder_depth(state, hand, cam)
+        vis_depth = visible_target_depth(p.camera, cam_inv, surf_w, occ_depth=occ)
+        pts_cam, pts_valid = depth_to_points(p.camera, vis_depth, p.new_points_per_step)
+        pts_w = pts_cam @ cam[:, :3, :3].transpose(-1, -2) + cam[:, None, :3, 3]
+
+        keep_u = (draws["keep_u"].to(self.device) if draws is not None
+                  else self._rand(generator, (b, p.new_points_per_step)))
+        pc = accumulate_points(state.pc, keep_u, pts_w, pts_valid, state.env_step,
+                               p.pt_accumulate_ratio)
+        if draws is not None:
+            idx = draws["idx"].to(self.device, torch.int64)
+        else:
+            u = self._rand(generator, (b, p.uniform_num_pts))
+            n = torch.clamp(num_valid(pc), min=1)[:, None]
+            idx = torch.minimum((u * n).to(torch.int64), n - 1)
+        point_state, n_pts = build_point_state(pc, idx, se3_inverse(hand))
+
+        goal_rel = se3_inverse(hand) @ self._goal_world(state)
+        obs = Observation(point_state=point_state, num_points=n_pts,
+                          joint_pos=state.phys.arm.q, ef_pose=hand,
+                          goal_pose=pack_pose_rot_first(goal_rel))
+        return dataclasses.replace(state, pc=pc), obs, vis_depth
+
+    # ------------------------------------------------------------------
+    @f32_matmuls
+    def sample_scene(self, batch: int, generator=None, draws=None):
+        """Randomise `batch` single-object scenes (reference:
+        env/panda_scene.py:995-1035, 777-827): a yawed object in the spawn
+        box and an arm start on a sphere shell around it, looking at it,
+        solved with IK from the anchor seeds. `draws` replaces the random
+        values: a dict of (B,) tensors x, y, yaw, theta, phi, r, (B, 3)
+        jitter and obj_idx. Returns a scene dict for
+        `reset_scene`."""
+        p, dev = self.p, self.device
+        if draws is not None:
+            d = {k: v.to(dev) for k, v in draws.items()}
+        else:
+            def u(lo, hi, shape=(batch,)):
+                return lo + self._rand(generator, shape) * (hi - lo)
+            d = {"x": u(*p.spawn_x), "y": u(*p.spawn_y), "yaw": u(-math.pi, math.pi),
+                 "theta": u(0.0, 2 * math.pi / 3), "phi": u(math.pi / 2, 3 * math.pi / 2),
+                 "r": u(p.init_near, p.init_far), "jitter": u(-0.03, 0.03, (batch, 3)),
+                 "obj_idx": torch.clamp(
+                     (self._rand(generator, (batch,)) * self.lib.num_objects).to(torch.int64),
+                     max=self.lib.num_objects - 1)}
+        obj_idx = d["obj_idx"].to(torch.int64)
+        yaw = d["yaw"]
+        zero = torch.zeros_like(yaw)
+        quat = torch.stack([torch.cos(yaw / 2), zero, zero, torch.sin(yaw / 2)], dim=-1)
+        pos = torch.stack([d["x"], d["y"], self.lib.rest_height[obj_idx] + 2e-3], dim=-1)
+
+        theta, phi = d["theta"], d["phi"]
+        offset = d["r"][:, None] * torch.stack(
+            [torch.sin(theta) * torch.cos(phi), torch.sin(theta) * torch.sin(phi),
+             torch.cos(theta)], dim=-1)
+        trans = pos + offset + d["jitter"]
+        trans = torch.stack([torch.clamp(trans[:, 0], 0.0, 0.5),
+                             torch.clamp(trans[:, 1], -0.3, 0.3),
+                             torch.clamp(trans[:, 2], 0.2, 0.6)], dim=-1)
+        z_axis = pos - trans
+        z_axis = z_axis / torch.clamp(torch.linalg.vector_norm(z_axis, dim=-1, keepdim=True),
+                                      min=1e-6)
+        up = const((0.0, 0.0, -1.0), dev).expand_as(z_axis)
+        x_axis = torch.linalg.cross(up, z_axis, dim=-1)
+        x_norm = torch.linalg.vector_norm(x_axis, dim=-1, keepdim=True)
+        x_axis = torch.where(x_norm > 1e-3, x_axis / torch.clamp(x_norm, min=1e-6),
+                             const((1.0, 0.0, 0.0), dev))
+        y_axis = torch.linalg.cross(z_axis, x_axis, dim=-1)
+        rot = torch.stack([x_axis, y_axis, z_axis], dim=-1)
+        q_init, ik_ok = ik_from_seeds(trans, rot)
+        q_init = torch.where(ik_ok[:, None], q_init, const(panda.DEFAULT_JOINTS, dev))
+        return {"obj_idx": obj_idx, "obj_pos": pos, "obj_quat": quat, "joints": q_init,
+                "ik_ok": ik_ok}
+
+    @f32_matmuls
+    def reset_scene(self, scene, generator=None, draws=None):
+        """Deterministic reset of a batch from a scene dict (the
+        scene-file protocol, reference: env/panda_scene.py:336-343): obj_idx
+        (B,), obj_pos (B, 3), obj_quat (B, 4), joints (B, 7), optional
+        ik_ok (B,), as `sample_scene` or the JAX package's `sample_scene`
+        (vmapped, numpy leaves) give them. The object settles for
+        `settle_substeps` substeps of the batched physics (one K7 launch).
+        `draws`: {"keep_u": (B, 512), "idx": (B, 1024)} for the first
+        observation. Returns (state, obs)."""
+        p, dev = self.p, self.device
+        t = lambda k, dtype=torch.float32: _tensor(scene[k], dev, dtype)
+        obj_idx = t("obj_idx", torch.int64)
+        b = obj_idx.shape[0]
+        ik_ok = (t("ik_ok", torch.bool) if "ik_ok" in scene
+                 else torch.ones(b, dtype=torch.bool, device=dev))
+        q = torch.cat([t("joints"), torch.full((b, 2), 0.04, device=dev)], dim=1)
+        zeros3 = torch.zeros(b, 3, device=dev)
+        phys = PhysicsState(
+            arm=ArmState(q=q, qd=torch.zeros(b, 7, device=dev), q_target=q),
+            obj=BodyState(pos=t("obj_pos"), quat=t("obj_quat"), linvel=zeros3, angvel=zeros3),
+            contact_force=torch.zeros(b, device=dev),
+            gripper_contact=torch.zeros(b, dtype=torch.bool, device=dev),
+        )
+        phys = fast_physics_step(p.physics, phys, self.lib.spheres[obj_idx],
+                                 self.lib.mass[obj_idx], self.lib.inertia[obj_idx],
+                                 substeps=p.settle_substeps)
+        false = torch.zeros(b, dtype=torch.bool, device=dev)
+        state = EnvState(
+            phys=phys, pc=create_pc_state(b, p.pc_capacity, dev), obj_idx=obj_idx,
+            env_step=torch.zeros(b, dtype=torch.int32, device=dev),
+            init_obj_z=phys.obj.pos[:, 2],
+            goal_obj=torch.eye(4, device=dev).repeat(b, 1, 1),
+            collided=false, collided_before=false, done=false,
+            valid_scene=torch.ones(b, dtype=torch.bool, device=dev),
+        )
+        state = self._update_goal(state)
+        state, obs, _ = self._observe_impl(state, generator, draws)
+
+        # scene validity (reference: core/utils.py:132-149): tcp distance in
+        # range, enough target points, IK solvable, a reachable grasp
+        hand = self._hand(state)
+        tcp = hand[:, :3, 3] + hand[:, :3, :3] @ const(TCP_OFFSET, dev)
+        dist = torch.linalg.vector_norm(phys.obj.pos - tcp, dim=-1)
+        goal_w, _, grasp_found = nearest_grasp_goal(
+            hand, self._obj_pose(state.phys.obj), self.lib.grasps[obj_idx],
+            self.lib.grasp_valid[obj_idx])
+        _, goal_reachable = ik_from_seeds(goal_w[:, :3, 3], goal_w[:, :3, :3], iters=20)
+        # the reference's 100-point check scales with the camera's pixels
+        min_pts = max(8, (50 * p.camera.height * p.camera.width) // 4096)
+        valid = (ik_ok & (dist > 0.15) & (dist < 0.6) & (obs.num_points > min_pts)
+                 & grasp_found & goal_reachable)
+        return dataclasses.replace(state, valid_scene=valid), obs
+
+    @f32_matmuls
+    def reset(self, batch: int, generator=None, draws=None):
+        """Randomised reset of `batch` envs: up to `reset_tries` scene
+        candidates, the first valid one kept per env
+        (reference: core/train_online.py:180-188). `draws`, if given, is a
+        list of one (scene draws, observation draws) pair per try."""
+        state = obs = None
+        for r in range(max(self.p.reset_tries, 1)):
+            scene_d, obs_d = (None, None) if draws is None else draws[r]
+            scene = self.sample_scene(batch, generator, scene_d)
+            st, ob = self.reset_scene(scene, generator, obs_d)
+            if state is None:
+                state, obs = st, ob
+            else:
+                keep_old = state.valid_scene
+                state, obs = _where(keep_old, state, st), _where(keep_old, obs, ob)
+        return state, obs
+
+    # ------------------------------------------------------------------
+    def _update_goal(self, state: EnvState) -> EnvState:
+        """Re-query the nearest reachable grasp unless a collision froze
+        it (reference: env/panda_scene.py:1280-1286)."""
+        obj_pose = self._obj_pose(state.phys.obj)
+        goal_w, _, found = nearest_grasp_goal(
+            self._hand(state), obj_pose, self.lib.grasps[state.obj_idx],
+            self.lib.grasp_valid[state.obj_idx])
+        goal_obj = se3_inverse(obj_pose) @ goal_w
+        keep_old = state.collided_before | ~found
+        return dataclasses.replace(
+            state, goal_obj=torch.where(keep_old[:, None, None], state.goal_obj, goal_obj))
+
+    def _apply_action(self, state: EnvState, action):
+        """Task-space delta -> IK -> servo targets
+        (reference: env/panda_scene.py:740-775)."""
+        action = torch.minimum(torch.maximum(action, -self.action_high), self.action_high)
+        target = self._hand(state) @ unpack_action(action)
+        q_arm, _, _ = dls_ik(state.phys.arm.q[:, :7], target[:, :3, 3], target[:, :3, :3],
+                             iters=self.p.step_ik_iters)
+        q_target = torch.cat([q_arm, torch.full_like(q_arm[:, :2], 0.04)], dim=1)
+        phys = dataclasses.replace(state.phys,
+                                   arm=dataclasses.replace(state.phys.arm, q_target=q_target))
+        return dataclasses.replace(state, phys=phys)
+
+    def _physics_batched(self, state: EnvState, substeps=None) -> EnvState:
+        idx = state.obj_idx
+        phys = fast_physics_step(self.p.physics, state.phys, self.lib.spheres[idx],
+                                 self.lib.mass[idx], self.lib.inertia[idx], substeps=substeps)
+        collided = phys.gripper_contact
+        return dataclasses.replace(state, phys=phys, collided=collided,
+                                   collided_before=state.collided_before | collided)
+
+    def _termination(self, state: EnvState, depth_img):
+        """Depth heuristic, max steps, fallen target
+        (reference: env/panda_scene.py:496-521)."""
+        p = self.p
+        h, w = p.camera.height, p.camera.width
+        d = torch.where(depth_img > 0, depth_img, 10.0)
+        roi = d[:, int(38.0 * h / 64):, int(24.0 * w / 64): int(48.0 * w / 64)]
+        depth_h = ((roi < 0.045).sum(dim=(1, 2)) > 10) & p.termination_heuristics
+        fallen = (state.phys.obj.pos[:, 2] - state.init_obj_z) < -p.fall_height
+        timeout = state.env_step >= p.max_steps
+        return depth_h | fallen | timeout
+
+    # ------------------------------------------------------------------
+    @f32_matmuls
+    def step_batched(self, state: EnvState, actions, generator=None, draws=None,
+                     requery_goal=None):
+        """One policy step of every env: (state, obs, reward, done, info).
+
+        `requery_goal` (B,) bool re-picks the nearest grasp this step (the
+        reference re-queries only for explore episodes,
+        reference: core/train_online.py:253); None re-picks for all.
+        `draws`: {"keep_u": (B, 512), "idx": (B, 1024)}."""
+        state = self._apply_action(state, actions)
+        state = self._physics_batched(state)
+        new_goal = self._update_goal(state)
+        if requery_goal is None:
+            state = new_goal
+        else:
+            state = dataclasses.replace(state, goal_obj=torch.where(
+                requery_goal[:, None, None], new_goal.goal_obj, state.goal_obj))
+        state, obs, vis_depth = self._observe_impl(state, generator, draws)
+        done = self._termination(state, vis_depth)
+        state = dataclasses.replace(state, env_step=state.env_step + 1,
+                                    done=state.done | done)
+        info = {
+            "collided": state.collided,
+            "goal_dist": torch.linalg.vector_norm(obs.goal_pose[:, 4:7], dim=-1),
+            "point_num": obs.num_points,
+            "obj_z": state.phys.obj.pos[:, 2],
+        }
+        return state, obs, torch.zeros(actions.shape[0], device=self.device), state.done, info
+
+    @f32_matmuls
+    def retract_batched(self, state: EnvState):
+        """Close the fingers, lift 10 x 3 cm, score the lift
+        (reference: env/panda_scene.py:455-494). Returns (state, lifted
+        (B,) float)."""
+        p = self.p
+        q_t = state.phys.arm.q_target.clone()
+        q_t[:, 7:9] = 0.0
+        state = dataclasses.replace(state, phys=dataclasses.replace(
+            state.phys, arm=dataclasses.replace(state.phys.arm, q_target=q_t)))
+        state = self._physics_batched(state, substeps=2 * p.physics.substeps)
+        lift = const((0.0, 0.0, p.retract_step_dz), self.device)
+        for _ in range(p.retract_lift_steps):
+            hand = self._hand(state)
+            q_arm, _, _ = dls_ik(state.phys.arm.q[:, :7], hand[:, :3, 3] + lift,
+                                 hand[:, :3, :3], iters=p.step_ik_iters)
+            q_t = torch.cat([q_arm, torch.zeros_like(q_arm[:, :2])], dim=1)
+            state = dataclasses.replace(state, phys=dataclasses.replace(
+                state.phys, arm=dataclasses.replace(state.phys.arm, q_target=q_t)))
+            state = self._physics_batched(state)
+        lifted = (state.phys.obj.pos[:, 2] - state.init_obj_z) > p.lift_height
+        return state, lifted.to(torch.float32)
+
+    # ------------------------------------------------------------------
+    @f32_matmuls
+    def expert_action(self, state: EnvState):
+        """The goal-servo expert's (B, 6) actions."""
+        return servo_expert_action(self._hand(state), self._goal_world(state))
+
+    @f32_matmuls
+    def expert_steps(self, state: EnvState):
+        """The servo's rough remaining step count (B,)."""
+        rel = se3_inverse(self._hand(state)) @ self._goal_world(state)
+        return expert_plan_length(rel, self.p.max_steps)

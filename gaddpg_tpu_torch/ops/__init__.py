@@ -1,4 +1,5 @@
-"""Point-cloud ops: plain PyTorch versions and the CUDA kernels behind them.
+"""Point-cloud and physics ops: plain PyTorch versions and the CUDA kernels
+behind them.
 
 Every kernel wrapper here dispatches on the device of its input: a CPU
 tensor runs the plain PyTorch version, a CUDA tensor launches the

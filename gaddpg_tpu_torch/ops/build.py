@@ -25,7 +25,8 @@ import torch
 
 CSRC = Path(__file__).with_name("csrc")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
-KERNELS = ("fps", "ball_query", "sa_gather_mlp", "mlp_maxpool", "sa_train_stats")
+KERNELS = ("fps", "ball_query", "sa_gather_mlp", "mlp_maxpool", "sa_train_stats",
+           "contact_scan")
 # shared memory one block may use on H100 (227 KB)
 MAX_SMEM_BYTES = 232448
 NVCC_FLAGS = (
@@ -41,6 +42,7 @@ SIGNATURES = {
     "sa_gather_mlp": ("gaddpg_sa_gather_mlp", (_P,) * 10 + (_I,) * 8 + (_P,)),
     "mlp_maxpool": ("gaddpg_mlp_maxpool", (_P,) * 8 + (_I,) * 6 + (_P,)),
     "sa_train_stats": ("gaddpg_sa_train_stats", (_P,) * 16 + (_I,) * 9 + (_P,)),
+    "contact_scan": ("gaddpg_contact_scan", (_P,) * 10 + (_I,) * 4 + (_P,)),
 }
 
 _lock = threading.Lock()

@@ -254,12 +254,16 @@ import torch
 from gaddpg_tpu_torch.agents import (
     AgentConfig, create_agent_state, make_bc_update, make_ddpg_update, make_select_action)
 from gaddpg_tpu_torch.deploy.runner import PolicyRunner
+from gaddpg_tpu_torch.envs.assets import box_asset
+from gaddpg_tpu_torch.envs.grasp_env import EnvParams, PandaGraspEnv
 for name, call in (
         ("make_select_action", lambda: make_select_action(AgentConfig())),
         ("create_agent_state", lambda: create_agent_state(AgentConfig(), npoints=96)),
         ("PolicyRunner", lambda: PolicyRunner(None, AgentConfig())),
         ("make_ddpg_update", lambda: make_ddpg_update()),
-        ("make_bc_update", lambda: make_bc_update())):
+        ("make_bc_update", lambda: make_bc_update()),
+        ("PandaGraspEnv", lambda: PandaGraspEnv(EnvParams(use_planner=False),
+                                                box_asset(0.05, 0.05, 0.14)))):
     try:
         call()
         raised[name] = None
@@ -273,8 +277,8 @@ print(json.dumps({"bad": bad, "cuda": torch.cuda.is_available(), "raised": raise
 def test_port_imports_no_jax_and_cuda_entry_points_raise():
     """In a fresh interpreter: every module of the port and chip_smoke
     import without JAX, Flax, Optax or the JAX package; the entry points,
-    the learner's updates included, default to CUDA and raise where there
-    is none."""
+    the learner's updates and the env included, default to CUDA and raise
+    where there is none."""
     env = dict(os.environ, PYTHONPATH=REPO)
     out = subprocess.run([sys.executable, "-c", _IMPORT_CHECK], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=120)
@@ -284,7 +288,10 @@ def test_port_imports_no_jax_and_cuda_entry_points_raise():
     for mod in ("ops.build", "ops.sampling", "ops.sa", "ops.sa_train", "models.pointnet",
                 "models.heads", "agents.state", "agents.optim", "agents.losses", "agents.ddpg",
                 "agents.bc", "deploy.runner", "deploy.realworld", "geometry.gripper",
-                "geometry.rotations", "utils.precision"):
+                "geometry.rotations", "utils.precision", "geometry.se3", "robot.panda",
+                "robot.ik", "physics.types", "physics.contact", "physics.fast",
+                "ops.contact_scan", "render.camera", "render.pointcloud", "envs.assets",
+                "envs.grasp_env", "expert.goals", "expert.servo"):
         assert f"gaddpg_tpu_torch.{mod}" in res["modules"]
     if not res["cuda"]:
         for name, msg in res["raised"].items():

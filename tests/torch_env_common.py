@@ -1,0 +1,107 @@
+"""Shared pieces of the env parity tests (tests/test_torch_env*.py): the
+JAX env and the port's on the same library, JAX scenes and the JAX
+package's random draws as tensors for the port."""
+
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import torch
+
+from gaddpg_tpu.envs import EnvParams as JaxEnvParams
+from gaddpg_tpu.envs import PandaGraspEnv as JaxPandaGraspEnv
+from gaddpg_tpu_torch.envs.assets import LIBRARY_FIELDS, library_from_arrays
+from gaddpg_tpu_torch.envs.grasp_env import EnvParams, PandaGraspEnv, state_from_numpy
+
+
+def make_envs(jax_lib):
+    """(JAX env, port env on the CPU) with `use_planner=False`, the port's
+    library carried over from the JAX one."""
+    lib = library_from_arrays(jax_lib.names, **{k: np.asarray(getattr(jax_lib, k))
+                                                 for k in LIBRARY_FIELDS})
+    return (JaxPandaGraspEnv(JaxEnvParams(use_planner=False), jax_lib),
+            PandaGraspEnv(EnvParams(use_planner=False), lib, device="cpu"))
+
+
+def numpy_tree(x):
+    """Nested dict of numpy leaves of a JAX dataclass pytree."""
+    return jax.tree_util.tree_map(np.asarray, dataclasses.asdict(x))
+
+
+def port_state(jax_state):
+    return state_from_numpy(numpy_tree(jax_state))
+
+
+def scenes(jenv, seeds):
+    """Batched JAX scenes from `sample_scene(PRNGKey(s))`, one seed at a
+    time (only its IK is compiled: quicker than compiling the vmap)."""
+    one = [jenv.sample_scene(jax.random.PRNGKey(s)) for s in seeds]
+    return jax.tree_util.tree_map(lambda *x: np.stack([np.asarray(a) for a in x]), *one)
+
+
+def jax_retract_batched(jenv, states):
+    """The JAX package's `retract_batched` (close the fingers for 2 x
+    substeps, then `retract_lift_steps` x (IK 3 cm up, physics step),
+    score the lift), with its steps unrolled in Python so that the close
+    and one lift step compile once each instead of as one scan."""
+    from gaddpg_tpu.robot.ik import dls_ik
+
+    p = jenv.p
+
+    def set_target(s, q_t):
+        return s.replace(phys=s.phys.replace(arm=s.phys.arm.replace(q_target=q_t)))
+
+    def close(s):
+        s = set_target(s, s.phys.arm.q_target.at[:, 7:9].set(0.0))
+        return jenv._physics_batched(s, substeps=2 * p.physics.substeps)
+
+    def lift(s):
+        def one(es):
+            hand = jenv._hand(es)
+            q, _, _ = dls_ik(es.phys.arm.q[:7], hand[:3, 3] + jnp.array([0.0, 0.0, p.retract_step_dz]),
+                             hand[:3, :3], iters=p.step_ik_iters)
+            return jnp.concatenate([q, jnp.zeros(2)])
+
+        return jenv._physics_batched(set_target(s, jax.vmap(one)(s)))
+
+    states = jax.jit(close)(states)
+    lift = jax.jit(lift)
+    for _ in range(p.retract_lift_steps):
+        states = lift(states)
+    lifted = (states.phys.obj.pos[:, 2] - states.init_obj_z) > p.lift_height
+    return states, np.asarray(lifted, np.float32)
+
+
+def observe_draws(obs_keys, count, capacity=2048, n_new=512, n_pts=1024):
+    """The draws the JAX `_observe_impl` makes from its per-env keys:
+    keep-uniforms and the resample indices below max(num_valid, 1), where
+    `count` is the JAX reservoir count after this observation."""
+    keep, idx = [], []
+    for k, c in zip(obs_keys, np.asarray(count)):
+        k1, k2, _ = jax.random.split(k, 3)
+        keep.append(np.asarray(jax.random.uniform(k1, (n_new,))))
+        idx.append(np.asarray(jax.random.randint(k2, (n_pts,), 0, max(min(int(c), capacity), 1))))
+    return {"keep_u": torch.as_tensor(np.stack(keep)), "idx": torch.as_tensor(np.stack(idx))}
+
+
+def point_state_mismatch(port_ps, jax_ps, tol=1e-4):
+    """Share of the sampled points (columns past the 6 anchors) whose
+    coordinates differ by more than `tol`; the anchors must be equal."""
+    a, b = port_ps.numpy(), np.asarray(jax_ps)
+    np.testing.assert_array_equal(a[:, :, :6], b[:, :, :6])
+    bad = (np.abs(a[:, :, 6:] - b[:, :, 6:]) > tol).any(axis=1)
+    return float(bad.mean())
+
+
+def assert_phys_close(port, ref, bounds):
+    """A port PhysicsState against a JAX one (numpy leaves)."""
+    pairs = {"pos": (port.obj.pos, ref.obj.pos), "quat": (port.obj.quat, ref.obj.quat),
+             "linvel": (port.obj.linvel, ref.obj.linvel),
+             "angvel": (port.obj.angvel, ref.obj.angvel),
+             "fingers": (port.arm.q[:, 7:9], ref.arm.q[:, 7:9]),
+             "arm_q": (port.arm.q[:, :7], ref.arm.q[:, :7])}
+    for name, tol in bounds.items():
+        a, b = pairs[name]
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=tol, rtol=0, err_msg=name)
+    np.testing.assert_array_equal(port.gripper_contact.numpy(), np.asarray(ref.gripper_contact))
