@@ -140,11 +140,13 @@ def _where(cond, a, b):
     return torch.where(cond.reshape(-1, *([1] * (a.dim() - 1))), a, b)
 
 
-def state_from_numpy(tree, device="cpu") -> EnvState:
+def state_from_numpy(tree, device="cuda") -> EnvState:
     """A port EnvState from the numpy leaves of a JAX EnvState given as a
     nested dict (`dataclasses.asdict` of the JAX state with every leaf
     through `np.asarray`), reservoir included. Clutter, planner and
-    image fields are ignored."""
+    image fields are ignored. Lands on the card unless `device="cpu"`,
+    and raises without one, as `from_flax` does."""
+    device = resolve_device(device)
     t = lambda x, dtype=torch.float32: _tensor(x, device, dtype)
     ph, pc = tree["phys"], tree["pc"]
     return EnvState(

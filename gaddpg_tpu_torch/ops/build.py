@@ -26,7 +26,7 @@ import torch
 CSRC = Path(__file__).with_name("csrc")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
 KERNELS = ("fps", "ball_query", "sa_gather_mlp", "mlp_maxpool", "sa_train_stats",
-           "contact_scan")
+           "contact_scan")  # the sources, one library each
 # shared memory one block may use on H100 (227 KB)
 MAX_SMEM_BYTES = 232448
 NVCC_FLAGS = (
@@ -35,14 +35,18 @@ NVCC_FLAGS = (
 )
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-# kernel -> (C symbol, argument types); the last argument is the stream
+# C entry -> (source, C symbol, argument types); the last argument is the stream
 SIGNATURES = {
-    "fps": ("gaddpg_fps", (_P, _I, _I, _I, _P, _P)),
-    "ball_query": ("gaddpg_ball_query", (_P, _P, _I, _I, _I, _F, _I, _P, _P)),
-    "sa_gather_mlp": ("gaddpg_sa_gather_mlp", (_P,) * 10 + (_I,) * 8 + (_P,)),
-    "mlp_maxpool": ("gaddpg_mlp_maxpool", (_P,) * 8 + (_I,) * 6 + (_P,)),
-    "sa_train_stats": ("gaddpg_sa_train_stats", (_P,) * 16 + (_I,) * 9 + (_P,)),
-    "contact_scan": ("gaddpg_contact_scan", (_P,) * 10 + (_I,) * 4 + (_P,)),
+    "fps": ("fps", "gaddpg_fps", (_P, _I, _I, _I, _P, _P)),
+    "ball_query": ("ball_query", "gaddpg_ball_query", (_P, _P, _I, _I, _I, _F, _I, _P, _P)),
+    "sa_gather_mlp": ("sa_gather_mlp", "gaddpg_sa_gather_mlp", (_P,) * 11 + (_I,) * 8 + (_P,)),
+    "mlp_maxpool": ("mlp_maxpool", "gaddpg_mlp_maxpool", (_P,) * 8 + (_I,) * 6 + (_P,)),
+    "sa_train_layer": ("sa_train_stats", "gaddpg_sa_train_layer",
+                       (_P,) * 13 + (_I,) * 7 + (_P,)),
+    "sa_train_pool": ("sa_train_stats", "gaddpg_sa_train_pool", (_P,) * 5 + (_I,) * 4 + (_P,)),
+    "groupall_train_stats": ("sa_train_stats", "gaddpg_groupall_train_stats",
+                             (_P,) * 14 + (_I,) * 7 + (_P,)),
+    "contact_scan": ("contact_scan", "gaddpg_contact_scan", (_P,) * 10 + (_I,) * 4 + (_P,)),
 }
 
 _lock = threading.Lock()
@@ -101,10 +105,9 @@ def build_all() -> dict:
                         proc.wait()
             if failed:
                 raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
-        for name, path in paths.items():
+        for name, (source, symbol, argtypes) in SIGNATURES.items():
             if name not in _functions:
-                lib = ctypes.CDLL(str(path))
-                symbol, argtypes = SIGNATURES[name]
+                lib = ctypes.CDLL(str(paths[source]))
                 fn = getattr(lib, symbol)
                 fn.argtypes = argtypes
                 fn.restype = ctypes.c_int
@@ -134,7 +137,7 @@ def kernel_device(name: str, *tensors) -> torch.device:
 
 
 def launch(name: str, device: torch.device, *args) -> None:
-    """Launch kernel `name` on `device`'s current stream with `args`
+    """Launch C entry `name` (a key of SIGNATURES) on `device`'s current stream with `args`
     (pointers as ints, then the C entry's other arguments); raises
     RuntimeError if the launch reported an error."""
     if name not in _functions:

@@ -1,6 +1,7 @@
 // Shared pieces of the port's kernels: the error-string export every
-// library carries, exact squared distances, and the register-tiled dense
-// layer of the set-abstraction kernels (eval K3/K4, train K5/K6).
+// library carries, exact squared distances, and the register-tiled fp32
+// dense layer of the group-all set-abstraction kernels (eval K4, train
+// K6; the grouped K3/K5 run on the tensor cores, sa_tile.cuh).
 #pragma once
 
 #include <cuda_runtime.h>

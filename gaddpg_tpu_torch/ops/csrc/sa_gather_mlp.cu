@@ -6,71 +6,91 @@
 // row (xyz in cols 0:3, zero elsewhere), run three Dense layers with
 // BatchNorm folded in, each followed by ReLU, and max over the K rows.
 //
-// What bounds it on H100: FLOPs. At SA2 (K=128, 131->128->128->256) one
-// centre is 2*128*65,920 = 16.9 MFLOP against ~70 KB of input rows, far
-// above the card's ~20 FLOP/byte fp32 balance point; the weights (263 KB
-// at SA2) are read by every block but stay resident in L2.
-// Design: one block per (cloud, centre). The gather is an indexed load
-// (never the TPU's one-hot matmul, whose rounding caused the round-5
-// train drift) straight into shared memory; the three layers run on that
-// tile with the activations in shared memory (SA2: 131 KB, hence the
-// dynamic shared memory opt-in, and one block per SM), each thread
-// holding an 8-row x 4-column register tile so that one float4 of w and
-// 8 shared loads feed 32 FMAs; 512 threads per block keep 16 warps in
-// flight on the SM. The last layer max-reduces into a shared row instead
-// of storing. Plain fp32 FMA on the CUDA cores: no tensor cores yet.
+// What bounds it on H100: FLOPs, counted over the rows the function
+// needs: the distinct slots of each group (sa_tile.cuh). At SA2 (K=128,
+// 131->128->128->256) a row is 2 * 65,920 FLOP against 0.5 KB of input,
+// and only 3-7% of the slots are distinct on real clouds.
+// Design (sa_tile.cuh): compact every group to its distinct slots, then
+// walk the compacted list in 64-row tiles that span several centres, so
+// that B=1 and B=1024 alike fill the card whatever the share of distinct
+// rows. A tile gathers its rows with indexed loads (never the TPU's
+// one-hot matmul, whose rounding caused the round-5 train drift) into
+// shared memory, runs the three layers there on the tensor cores in
+// 3xTF32 (fp32 accuracy; weights streamed in by cp.async), and max-pools
+// its rows per centre into the zeroed output with atomicMax.
 
-#include "common.cuh"
+#include "sa_tile.cuh"
 
 namespace {
 
-constexpr int kThreads = 512;
+using namespace gaddpg;
 
-__global__ void __launch_bounds__(kThreads) sa_gather_mlp_kernel(
-    const int* __restrict__ idx, const float* __restrict__ full,
+__global__ void __launch_bounds__(kTileThreads, 2) sa_gather_mlp_kernel(
+    RowList list, int groups, const float* __restrict__ full,
     const float* __restrict__ cpad, const float* __restrict__ w1,
     const float* __restrict__ b1, const float* __restrict__ w2,
     const float* __restrict__ b2, const float* __restrict__ w3,
-    const float* __restrict__ b3, float* __restrict__ out, int s, int k, int n,
-    int cin, int c1, int c2, int c3) {
-  extern __shared__ float smem[];
-  const int centre = blockIdx.x;  // b * s + centre within the cloud
-  const float* table = full + static_cast<size_t>(centre / s) * n * cin;
-  const int* group = idx + static_cast<size_t>(centre) * k;
-  const float* offset = cpad + static_cast<size_t>(centre) * cin;
-
-  for (int e = threadIdx.x; e < k * cin; e += blockDim.x) {
-    const int r = e / cin;
-    const int j = e - r * cin;
-    const int row = group[r];
-    // an index outside [0, n) reads a zero row, as the one-hot gather did
-    const float v = (row >= 0 && row < n) ? table[static_cast<size_t>(row) * cin + j] : 0.0f;
-    smem[e] = v - offset[j];
+    const float* __restrict__ b3, float* __restrict__ out, int s, int n, int cin, int c1,
+    int c2, int c3, int widest_out, int widest_act) {
+  extern __shared__ float4 smem4[];
+  const TileSmem t = tile_smem(reinterpret_cast<float*>(smem4), widest_out, widest_act);
+  const int total = list.start[groups];
+  const int tiles = (total + kRowTile - 1) / kRowTile;
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    const int row0 = tile * kRowTile;
+    const int rows = min(kRowTile, total - row0);
+    __syncthreads();  // the previous tile's pool has read act and group
+    load_rows(list, row0, rows, t);
+    gather_tile(rows, full, cpad, s, n, cin, t);
+    TileAcc acc;
+    dense_tf32x3(t.act, cin, w1, c1, t.wbuf, acc);
+    store_tile(acc, b1, c1, true, t.act);
+    dense_tf32x3(t.act, c1, w2, c2, t.wbuf, acc);
+    store_tile(acc, b2, c2, true, t.act);
+    dense_tf32x3(t.act, c2, w3, c3, t.wbuf, acc);
+    store_tile(acc, b3, c3, true, t.act);
+    __syncthreads();
+    const int as = act_stride(c3);
+    const float* act = t.act;
+    pool_rows(rows, t.group, c3, out, [=](int r, int c) { return act[r * as + c]; });
   }
-  __syncthreads();
-  const float* pool = gaddpg::mlp3_maxpool(smem, k, cin, w1, b1, c1, w2, b2, c2, w3, b3, c3);
-  float* o = out + static_cast<size_t>(centre) * c3;
-  for (int c = threadIdx.x; c < c3; c += blockDim.x) o[c] = pool[c];
 }
 
 }  // namespace
 
 // idx (b, s, k) int32; full (b, n, cin); cpad (b, s, cin); w_i (c_{i-1}, c_i)
-// row-major and b_i (c_i,) with BatchNorm folded in; out (b, s, c3).
-// All float32 contiguous.
+// row-major, 16-byte aligned, and b_i (c_i,) with BatchNorm folded in;
+// out (b, s, c3), zero on entry; rows an int32 scratch of
+// 2*b*s + 1 + 3*b*s*k ints (the compacted row list). All float32
+// contiguous. Returns cudaErrorInvalidValue for a layer width that is not
+// a multiple of 8 or above 256, or unaligned weights.
 extern "C" int gaddpg_sa_gather_mlp(const void* idx, const void* full, const void* cpad,
                                     const void* w1, const void* b1, const void* w2,
                                     const void* b2, const void* w3, const void* b3,
-                                    void* out, int b, int s, int k, int n, int cin,
-                                    int c1, int c2, int c3, void* stream) {
-  const size_t smem = gaddpg::mlp_smem_floats(k, cin, c1, c2, c3) * sizeof(float);
-  cudaError_t err = gaddpg::allow_smem(sa_gather_mlp_kernel, smem);
+                                    void* out, void* rows, int b, int s, int k, int n,
+                                    int cin, int c1, int c2, int c3, void* stream) {
+  for (const int c : {c1, c2, c3}) {
+    if (c % 8 || c > kMaxWidth) return cudaErrorInvalidValue;
+  }
+  for (const void* w : {w1, w2, w3}) {
+    if (reinterpret_cast<uintptr_t>(w) % 16) return cudaErrorInvalidValue;
+  }
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int groups = b * s;
+  const RowList list = row_list(rows, groups, k);
+  cudaError_t err = compact_groups(static_cast<const int*>(idx), groups, k, list, st);
   if (err != cudaSuccess) return err;
-  sa_gather_mlp_kernel<<<b * s, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int*>(idx), static_cast<const float*>(full),
-      static_cast<const float*>(cpad), static_cast<const float*>(w1),
-      static_cast<const float*>(b1), static_cast<const float*>(w2),
-      static_cast<const float*>(b2), static_cast<const float*>(w3),
-      static_cast<const float*>(b3), static_cast<float*>(out), s, k, n, cin, c1, c2, c3);
+  const int widest_out = std::max({c1, c2, c3});
+  const int widest_act = std::max(cin, widest_out);
+  const size_t smem = tile_smem_bytes(widest_out, widest_act);
+  int grid = 0;
+  err = tile_grid(sa_gather_mlp_kernel, smem, groups * k, &grid);
+  if (err != cudaSuccess) return err;
+  sa_gather_mlp_kernel<<<grid, kTileThreads, smem, st>>>(
+      list, groups, static_cast<const float*>(full), static_cast<const float*>(cpad),
+      static_cast<const float*>(w1), static_cast<const float*>(b1),
+      static_cast<const float*>(w2), static_cast<const float*>(b2),
+      static_cast<const float*>(w3), static_cast<const float*>(b3), static_cast<float*>(out),
+      s, n, cin, c1, c2, c3, widest_out, widest_act);
   return cudaGetLastError();
 }

@@ -1,107 +1,223 @@
-// K5/K6: batch statistics of a train-mode set-abstraction level, one
-// layer per pass.
+// K5/K6: the train-mode set-abstraction levels, batch statistics and
+// pooled output.
 //
-// Replaces the stats half of the Pallas kernels `sa_train_fused`
-// (`_stats_kernel` and `_run_stats`, gaddpg_tpu/ops/pallas_sa_train.py:
-// 138-177, 207-232) and `groupall_train_fused` (`_groupall_stats_kernel`
-// and `_pallas_groupall_train`, :367-386, 399-427). Pass `upto` (1, 2, 3)
-// gathers each centre's K group members' rows of the (N, C_in) point
-// table, subtracts the centre row (xyz in cols 0:3, zero elsewhere),
-// recomputes layers 1..upto-1 with the BatchNorm affine of the earlier
-// passes' batch statistics, runs layer `upto` up to its pre-BatchNorm
-// output z, and accumulates per-channel sum and sum of squares of z over
-// all B*S*K rows; then mean = sum/count and var = sumsq/count - mean^2.
-// The group-all level (K6) is the same pass with an identity gather and
-// no centring: idx and cpad null, one "centre" per cloud (S = 1) whose K
-// = N rows are the whole table. The level's final forward is K3
-// (sa_gather_mlp.cu) or K4 (mlp_maxpool.cu) on weights folded with the
-// three batch-stat affines, launched by the wrapper (ops/sa_train.py).
+// K5 replaces the Pallas kernel `sa_train_fused` (`_stats_kernel`,
+// `_forward_kernel`, `_run_stats` and `_pallas_sa_train_forward`,
+// gaddpg_tpu/ops/pallas_sa_train.py:138-290). Per layer i of the three,
+// z_i = h_{i-1} @ w_i + b_i over every slot of every group, its batch
+// mean and variance over all B*S*K slots (var = E[z^2] - mean^2), then
+// h_i = relu(z_i * a_i + c_i) with the BatchNorm affine of those
+// statistics; h_0 is the gathered row minus the centre row (xyz in cols
+// 0:3, zero elsewhere); pooled = max of h_3 over the K slots.
+// What bounds it on H100: FLOPs, each layer once over the distinct slots
+// of each group (sa_tile.cuh), 2 * 65,920 FLOP per row at SA2.
+// Design: the TPU kernel streams through VMEM and so recomputes layers
+// 1..i-1 in stats pass i, then all three in the final forward (2.76x the
+// function's FLOPs). Here each layer runs once, on the row tiles of the
+// compacted list (sa_tile.cuh): pass 1 gathers (indexed loads, never the
+// TPU's one-hot matmul, whose rounding caused the round-5 drift) and
+// computes z_1; pass i > 1 reads z_{i-1} back from a scratch tensor and
+// applies its affine and ReLU. Each pass writes z_i to scratch and each
+// tile's per-channel sums of m*z and m*z^2 (m: the slots the row stands
+// for) to its own partial, which a second kernel adds in a fixed order
+// in double (train_stats.cuh): no float atomics, so two calls give the
+// same bits. The dense layers run on the tensor cores in 3xTF32. The
+// final pass applies the last affine and ReLU to z_3 and max-pools by
+// segment; there is no final forward.
 //
-// What bounds it on H100: FLOPs. The function needs each layer once per
-// row; the three passes recompute layers 1..upto-1, so at SA2 (K=128,
-// 131->128->128->256) they do 2*128*(16,768 + 33,152 + 65,920) = 29.7
-// MFLOP per centre, 1.76x the function's 16.9 MFLOP, against ~70 KB of
-// input rows; the activations never leave shared memory.
-// Design: one block per (cloud, centre), as K3: the gather is an indexed
-// load (never the TPU's one-hot matmul, whose rounding caused the
-// round-5 train drift) into shared memory, and the layers run with K3's
-// 8x4 register-tiled dense layer (common.cuh). The TPU kernel carried
-// its sums across the sequential grid; here each block writes its own
-// partial sums, and a second kernel adds the partials per channel in a
-// fixed order (train_stats.cuh), so there are no float atomics and two
-// runs give the same bits. Plain fp32 FMA on the CUDA cores.
+// K6 replaces `groupall_train_fused` (`_groupall_stats_kernel` and
+// `_pallas_groupall_train`, :367-386, 399-427): the group-all level, all
+// N rows of a cloud, not centred, statistics over B*N rows. Each stats
+// pass `upto` (1, 2, 3) is one block per cloud that recomputes layers
+// 1..upto-1 with K3/K4's 8x4 register-tiled fp32 layer (common.cuh); at
+// N = 32 rows it is small. Its final forward is K4 (mlp_maxpool.cu) on
+// the Denses folded with the batch-stat affines, launched by the wrapper.
 
-#include <cstdint>
-#include <initializer_list>
-
+#include "sa_tile.cuh"
 #include "train_stats.cuh"
 
 namespace {
 
-constexpr int kThreads = 512;
+using namespace gaddpg;
+
 // group-all blocks: at N = 32 rows and 256-wide layers, 256 threads make
 // 4 row groups of 8 rows, all busy; 512 would leave half of them idle
 constexpr int kGroupAllThreads = 256;
 
-__global__ void __launch_bounds__(kThreads) sa_train_stats_kernel(
-    const int* __restrict__ idx, const float* __restrict__ full,
-    const float* __restrict__ cpad, gaddpg::TrainMlp mlp, float* __restrict__ partial,
-    int s, int k, int n, int upto) {
+__global__ void __launch_bounds__(kGroupAllThreads) groupall_train_stats_kernel(
+    const float* __restrict__ full, TrainMlp mlp, float* __restrict__ partial, int n,
+    int upto) {
   extern __shared__ float smem[];
   const int cin = mlp.width[0];
-  const int centre = blockIdx.x;  // b * s + centre within the cloud
-  const float* table = full + static_cast<size_t>(centre / s) * n * cin;
-  const int* group = idx == nullptr ? nullptr : idx + static_cast<size_t>(centre) * k;
-  const float* offset = cpad == nullptr ? nullptr : cpad + static_cast<size_t>(centre) * cin;
-  for (int e = threadIdx.x; e < k * cin; e += blockDim.x) {
-    const int r = e / cin;
-    const int j = e - r * cin;
-    const int row = group == nullptr ? r : group[r];
-    // an index outside [0, n) reads a zero row, as in K3
-    const float v = (row >= 0 && row < n) ? table[static_cast<size_t>(row) * cin + j] : 0.0f;
-    smem[e] = offset == nullptr ? v : v - offset[j];
-  }
+  const float* table = full + static_cast<size_t>(blockIdx.x) * n * cin;
+  for (int e = threadIdx.x; e < n * cin; e += blockDim.x) smem[e] = table[e];
   __syncthreads();
   const int cout = mlp.width[upto];
-  gaddpg::mlp_stats(smem, k, mlp, upto, partial + static_cast<size_t>(centre) * 2 * cout);
+  mlp_stats(smem, n, mlp, upto, partial + static_cast<size_t>(blockIdx.x) * 2 * cout);
+}
+
+// K5 pass `layer` (1, 2, 3) over the compacted list: z = h @ w + b of
+// each row to zout (rows x cout) and the tile's sums of m*z and m*z^2 to
+// partial[tile] (2 x cout); h is the gathered row (layer 1) or
+// relu(zin * a + c) of the previous pass's output zin (rows x cin).
+__global__ void __launch_bounds__(kTileThreads, 2) sa_train_layer_kernel(
+    RowList list, int groups, const float* __restrict__ full, const float* __restrict__ cpad,
+    const float* __restrict__ zin, const float* __restrict__ a, const float* __restrict__ c,
+    const float* __restrict__ w, const float* __restrict__ b, float* __restrict__ zout,
+    float* __restrict__ partial, int s, int n, int cin, int cout, int layer) {
+  extern __shared__ float4 smem4[];
+  const TileSmem t = tile_smem(reinterpret_cast<float*>(smem4), cout, max(cin, cout));
+  const int total = list.start[groups];
+  const int tiles = (total + kRowTile - 1) / kRowTile;
+  const int as = act_stride(cout);
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    const int row0 = tile * kRowTile;
+    const int rows = min(kRowTile, total - row0);
+    __syncthreads();  // the previous tile's sums have read act and mult
+    load_rows(list, row0, rows, t);
+    if (layer == 1) {
+      gather_tile(rows, full, cpad, s, n, cin, t);
+    } else {
+      affine_tile(zin, a, c, row0, rows, cin, t);
+    }
+    TileAcc acc;
+    dense_tf32x3(t.act, cin, w, cout, t.wbuf, acc);
+    store_tile(acc, b, cout, false, t.act);
+    __syncthreads();
+    float* part = partial + static_cast<size_t>(tile) * 2 * cout;
+    for (int col = threadIdx.x; col < cout; col += blockDim.x) {
+      float sum = 0.0f, sq = 0.0f;
+      for (int r = 0; r < rows; ++r) {
+        const float z = t.act[r * as + col];
+        const float mz = static_cast<float>(t.mult[r]) * z;
+        sum += mz;
+        sq = fmaf(mz, z, sq);
+        zout[static_cast<size_t>(row0 + r) * cout + col] = z;
+      }
+      part[col] = sum;
+      part[cout + col] = sq;
+    }
+  }
+}
+
+// K5's pooled output: max over each group's rows of relu(z * a + c), by
+// segment into the zeroed out (groups x cout), a tile of z at a time
+// through shared memory.
+__global__ void __launch_bounds__(kTileThreads) sa_train_pool_kernel(
+    RowList list, int groups, const float* __restrict__ z, const float* __restrict__ a,
+    const float* __restrict__ c, float* __restrict__ out, int cout) {
+  extern __shared__ float4 smem4[];
+  const TileSmem t = tile_smem(reinterpret_cast<float*>(smem4), 0, cout);  // no weights
+  const int total = list.start[groups];
+  const int tiles = (total + kRowTile - 1) / kRowTile;
+  const int as = act_stride(cout);
+  const float* act = t.act;
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    const int row0 = tile * kRowTile;
+    const int rows = min(kRowTile, total - row0);
+    __syncthreads();  // the previous tile's pool has read act and group
+    load_rows(list, row0, rows, t);
+    affine_tile(z, a, c, row0, rows, cout, t);
+    __syncthreads();
+    pool_rows(rows, t.group, cout, out, [=](int r, int col) { return act[r * as + col]; });
+  }
 }
 
 }  // namespace
 
-// idx (b, s, k) int32, or null for the group-all level (s = 1, k = n,
-// row r of the block is row r of its cloud); full (b, n, cin); cpad (b,
-// s, cin), or null for no centring; w_i (c_{i-1}, c_i) row-major, 16-byte
-// aligned, and b_i (c_i,) the raw Dense parameters; g_i, o_i (c_i,) the
-// BatchNorm affine of layer i (read for i < upto, may be null
-// otherwise); partial (b*s, 2, c_upto) scratch; mean, var (c_upto,) the
-// outputs. All float32 contiguous. Returns cudaErrorInvalidValue for a
-// layer width that is not a multiple of 4, unaligned weights, or (from
-// allow_smem) a tile that does not fit in shared memory.
-extern "C" int gaddpg_sa_train_stats(
-    const void* idx, const void* full, const void* cpad, const void* w1, const void* b1,
-    const void* g1, const void* o1, const void* w2, const void* b2, const void* g2,
-    const void* o2, const void* w3, const void* b3, void* partial, void* mean, void* var,
-    int b, int s, int k, int n, int cin, int c1, int c2, int c3, int upto, void* stream) {
+// K5 pass `layer` of a grouped level. idx (b, s, k) int32; full (b, n,
+// cin0); cpad (b, s, cin0); zin (rows, cin) the previous pass's z and a,
+// c (cin,) its BatchNorm affine (layers 2, 3; null for layer 1, where cin
+// = cin0); w (cin, cout) row-major, 16-byte aligned, b (cout,); zout a
+// scratch of b*s*k*cout floats; partial a scratch of
+// ceil(b*s*k / 64) * 2 * cout floats; rows the int32 row-list scratch of
+// 2*b*s + 1 + 3*b*s*k ints, laid out by the layer-1 pass and read by the
+// later ones; mean, var (cout,) the outputs, over all b*s*k slots. All
+// float32 contiguous. Returns cudaErrorInvalidValue for a width that is
+// not a multiple of 8 or above 256, or unaligned weights.
+extern "C" int gaddpg_sa_train_layer(const void* idx, const void* full, const void* cpad,
+                                     const void* zin, const void* a, const void* c,
+                                     const void* w, const void* b, void* zout, void* partial,
+                                     void* rows, void* mean, void* var, int batch, int s,
+                                     int k, int n, int cin, int cout, int layer, void* stream) {
+  if (layer < 1 || layer > 3 || cout % 8 || cout > kMaxWidth ||
+      (layer > 1 && cin % 8) || reinterpret_cast<uintptr_t>(w) % 16) {
+    return cudaErrorInvalidValue;
+  }
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int groups = batch * s;
+  const RowList list = row_list(rows, groups, k);
+  cudaError_t err;
+  if (layer == 1) {
+    err = compact_groups(static_cast<const int*>(idx), groups, k, list, st);
+    if (err != cudaSuccess) return err;
+  }
+  const size_t smem = tile_smem_bytes(cout, std::max(cin, cout));
+  int grid = 0;
+  err = tile_grid(sa_train_layer_kernel, smem, groups * k, &grid);
+  if (err != cudaSuccess) return err;
+  sa_train_layer_kernel<<<grid, kTileThreads, smem, st>>>(
+      list, groups, static_cast<const float*>(full), static_cast<const float*>(cpad),
+      static_cast<const float*>(zin), static_cast<const float*>(a),
+      static_cast<const float*>(c), static_cast<const float*>(w),
+      static_cast<const float*>(b), static_cast<float*>(zout), static_cast<float*>(partial),
+      s, n, cin, cout, layer);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  return launch_reduce_stats(static_cast<const float*>(partial), 0, list.start + groups,
+                             kRowTile, cout, static_cast<double>(groups) * k,
+                             static_cast<float*>(mean), static_cast<float*>(var), st);
+}
+
+// K5's final pass: z (rows, cout) the layer-3 pass's z, a, c (cout,) its
+// BatchNorm affine, rows the row list of the layer-1 pass; out (b, s,
+// cout), zero on entry.
+extern "C" int gaddpg_sa_train_pool(const void* rows, const void* z, const void* a,
+                                    const void* c, void* out, int batch, int s, int k,
+                                    int cout, void* stream) {
+  const int groups = batch * s;
+  const RowList list = row_list(const_cast<void*>(rows), groups, k);
+  const size_t smem = tile_smem_bytes(0, cout);
+  int grid = 0;
+  cudaError_t err = tile_grid(sa_train_pool_kernel, smem, groups * k, &grid);
+  if (err != cudaSuccess) return err;
+  sa_train_pool_kernel<<<grid, kTileThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      list, groups, static_cast<const float*>(z), static_cast<const float*>(a),
+      static_cast<const float*>(c), static_cast<float*>(out), cout);
+  return cudaGetLastError();
+}
+
+// K6 stats pass `upto` of a group-all level. full (b, n, cin); w_i
+// (c_{i-1}, c_i) row-major, 16-byte aligned, and b_i (c_i,) the raw Dense
+// parameters; g_i, o_i (c_i,) the BatchNorm affine of layer i (read for
+// i < upto, may be null otherwise); partial (b, 2, c_upto) scratch; mean,
+// var (c_upto,) the outputs. All float32 contiguous. Returns
+// cudaErrorInvalidValue for a layer width that is not a multiple of 4,
+// unaligned weights, or (from allow_smem) a tile that does not fit in
+// shared memory.
+extern "C" int gaddpg_groupall_train_stats(
+    const void* full, const void* w1, const void* b1, const void* g1, const void* o1,
+    const void* w2, const void* b2, const void* g2, const void* o2, const void* w3,
+    const void* b3, void* partial, void* mean, void* var, int b, int n, int cin, int c1,
+    int c2, int c3, int upto, void* stream) {
   if (upto < 1 || upto > 3) return cudaErrorInvalidValue;
   for (const int c : {c1, c2, c3}) {
-    if (c % gaddpg::kTileCols) return cudaErrorInvalidValue;
+    if (c % kTileCols) return cudaErrorInvalidValue;
   }
   for (const void* w : {w1, w2, w3}) {
     if (reinterpret_cast<uintptr_t>(w) % 16) return cudaErrorInvalidValue;
   }
-  const gaddpg::TrainMlp mlp =
-      gaddpg::train_mlp(w1, b1, g1, o1, w2, b2, g2, o2, w3, b3, cin, c1, c2, c3);
-  const int threads = idx == nullptr ? kGroupAllThreads : kThreads;
-  const size_t smem = gaddpg::stats_smem_floats(k, mlp.width, upto, threads) * sizeof(float);
-  cudaError_t err = gaddpg::allow_smem(sa_train_stats_kernel, smem);
+  const TrainMlp mlp = train_mlp(w1, b1, g1, o1, w2, b2, g2, o2, w3, b3, cin, c1, c2, c3);
+  const size_t smem =
+      stats_smem_floats(n, mlp.width, upto, kGroupAllThreads) * sizeof(float);
+  cudaError_t err = allow_smem(groupall_train_stats_kernel, smem);
   if (err != cudaSuccess) return err;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  sa_train_stats_kernel<<<b * s, threads, smem, st>>>(
-      static_cast<const int*>(idx), static_cast<const float*>(full),
-      static_cast<const float*>(cpad), mlp, static_cast<float*>(partial), s, k, n, upto);
+  groupall_train_stats_kernel<<<b, kGroupAllThreads, smem, st>>>(
+      static_cast<const float*>(full), mlp, static_cast<float*>(partial), n, upto);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  return gaddpg::launch_reduce_stats(static_cast<const float*>(partial), b * s, mlp.width[upto],
-                                     static_cast<double>(b) * s * k, static_cast<float*>(mean),
-                                     static_cast<float*>(var), st);
+  return launch_reduce_stats(static_cast<const float*>(partial), b, nullptr, 1,
+                             mlp.width[upto], static_cast<double>(b) * n,
+                             static_cast<float*>(mean), static_cast<float*>(var), st);
 }

@@ -1,6 +1,6 @@
-// Pieces of the train-mode set-abstraction stats kernel (K5 and K6,
-// sa_train_stats.cu): one stats pass of the three-layer MLP over a
-// block's rows, and the fixed-order reduction of the blocks' partial sums
+// Pieces of the train-mode set-abstraction kernels (sa_train_stats.cu):
+// the group-all stats pass of K6 over a block's rows, and the
+// fixed-order reduction of per-block (K6) or per-tile (K5) partial sums
 // into the batch mean and variance.
 #pragma once
 
@@ -70,14 +70,17 @@ constexpr int kReduceRows = 16;  // partials summed side by side
 
 // mean[c] = sum / count and var[c] = sumsq / count - mean^2 (no clamp,
 // as pallas_sa_train.py:229-231 computes them) from partial (parts, 2, cout).
+// With `rows` (a count on the device, K5's compacted rows) the partials
+// are those of its ceil(rows / row_tile) tiles instead of `parts`.
 // Thread (x, y) sums partials y, y + kReduceRows, ... of channel x in
 // double, then row 0 adds the kReduceRows sums in order: no atomics, so
 // two runs give the same bits; a warp reads 32 adjacent channels.
 __global__ void __launch_bounds__(kReduceCols * kReduceRows) reduce_stats_kernel(
-    const float* __restrict__ partial, int parts, int cout, double count,
-    float* __restrict__ mean, float* __restrict__ var) {
+    const float* __restrict__ partial, int parts, const int* __restrict__ rows, int row_tile,
+    int cout, double count, float* __restrict__ mean, float* __restrict__ var) {
   __shared__ double s_sum[kReduceRows][kReduceCols];
   __shared__ double s_sq[kReduceRows][kReduceCols];
+  if (rows != nullptr) parts = (*rows + row_tile - 1) / row_tile;
   const int c = blockIdx.x * kReduceCols + threadIdx.x;
   double s = 0.0, q = 0.0;
   if (c < cout) {
@@ -100,11 +103,12 @@ __global__ void __launch_bounds__(kReduceCols * kReduceRows) reduce_stats_kernel
   }
 }
 
-inline cudaError_t launch_reduce_stats(const float* partial, int parts, int cout, double count,
-                                       float* mean, float* var, cudaStream_t stream) {
+inline cudaError_t launch_reduce_stats(const float* partial, int parts, const int* rows,
+                                       int row_tile, int cout, double count, float* mean,
+                                       float* var, cudaStream_t stream) {
   const dim3 block(kReduceCols, kReduceRows);
   reduce_stats_kernel<<<(cout + kReduceCols - 1) / kReduceCols, block, 0, stream>>>(
-      partial, parts, cout, count, mean, var);
+      partial, parts, rows, row_tile, cout, count, mean, var);
   return cudaGetLastError();
 }
 

@@ -6,7 +6,8 @@ level becomes gather -> 3x (Dense + ReLU) -> max-pool:
 
 - `sa_gather_mlp` (K3, `csrc/sa_gather_mlp.cu`): a grouped level; the
   JAX function handles one cloud and is vmapped, here the batch is the
-  leading axis.
+  leading axis. The kernel computes only each group's distinct slots
+  (`distinct_slots`), which give the same pooled max.
 - `mlp_maxpool` (K4, `csrc/mlp_maxpool.cu`): the group-all level.
 
 Weights are `((w1, b1), (w2, b2), (w3, b3))` with w_i of shape
@@ -59,6 +60,38 @@ def sa_gather_mlp_reference(group_idx, full, center_pad, weights):
     return _mlp_relu(rows - center_pad[:, :, None, :], weights).amax(dim=2)
 
 
+def distinct_slots(group_idx):
+    """(mask, multiplicity), both (..., K), of the slots of each group
+    that a grouped SA level must compute: slot 0, standing for every slot
+    whose index equals its own (itself included), and each slot k >= 1
+    whose index differs from slot 0's, standing for itself; the other
+    slots are masked out with multiplicity 0.
+
+    A slot whose index equals slot 0's gathers the same row, so it gives
+    slot 0's layer outputs bit for bit: it adds nothing to the pooled max
+    and adds slot 0's z once more to the batch sums. So the max over the
+    kept rows is the max over all slots, and the multiplicity-weighted
+    sums over the kept rows are the sums over all slots. The rule holds
+    for any index: out-of-range indices read the zero row in the kernels
+    wherever they stand, and repeats that differ from slot 0 are simply
+    kept twice. Ball query pads each group with its first hit, so most
+    slots of a sparse group repeat slot 0."""
+    same = group_idx == group_idx[..., :1]
+    mask = ~same
+    mask[..., 0] = True
+    mult = mask.to(torch.int32)
+    mult[..., 0] = same.sum(dim=-1)
+    return mask, mult
+
+
+def row_list_ints(groups, k):
+    """int32 scratch of the compacted row list the K3/K5 kernels lay out
+    for `groups` groups of `k` slots (csrc/sa_tile.cuh `RowList`): the
+    count and prefix sum of each group's distinct slots, and group,
+    member and multiplicity of up to every slot."""
+    return 2 * groups + 1 + 3 * groups * k
+
+
 def mlp_maxpool_reference(full, weights):
     """Plain PyTorch K4: full (B, N, C_in) -> (B, 1, C3)."""
     return _mlp_relu(full, weights).amax(dim=1, keepdim=True)
@@ -79,8 +112,21 @@ def _check_widths(name, weights, cin):
     return widths[1:]
 
 
+def check_tile_widths(name, weights):
+    """What the row-tile kernels (K3, K5) need beyond the plain version:
+    every layer width a multiple of 8 up to 256 (one tile's accumulators
+    on the tensor cores), and weights that cp.async can read as 16-byte
+    rows."""
+    for w in weights:
+        if w.shape[1] % 8 or w.shape[1] > 256 or w.data_ptr() % 16:
+            raise ValueError(
+                f"{name}: layer width {w.shape[1]} must be a multiple of 8 up to 256 "
+                "and its weights 16-byte aligned"
+            )
+
+
 def _check_kernel_layout(name, weights, rows, cin, c1, c2, c3):
-    """What the CUDA kernels need beyond the plain version: the tile fits
+    """What the K4 kernel needs beyond the plain version: the tile fits
     in shared memory, and every layer's w can be read as float4 rows
     (width a multiple of 4, 16-byte aligned)."""
     floats = rows * max(cin, c2) + rows * c1 + c3
@@ -102,8 +148,10 @@ def sa_gather_mlp(group_idx, full, center_pad, weights):
     by `group_idx` (B, S, K) int32, subtract `center_pad` (B, S, C_in),
     3x (folded Dense + ReLU), max over K -> (B, S, C3) float32.
 
-    Indices must lie in [0, N) (ball query's output does). CPU tensors:
-    `sa_gather_mlp_reference`. CUDA tensors: the K3 kernel."""
+    Indices must lie in [0, N) (ball query's output does; the kernel
+    reads a zero row for any other). CPU tensors:
+    `sa_gather_mlp_reference`. CUDA tensors: the K3 kernel, on each
+    group's distinct slots."""
     b, s, k = group_idx.shape
     n, cin = full.shape[1], full.shape[2]
     if (group_idx.dtype != torch.int32 or full.dtype != torch.float32
@@ -119,12 +167,13 @@ def sa_gather_mlp(group_idx, full, center_pad, weights):
                               *(t for layer in weights for t in layer))
     if dev.type == "cpu":
         return sa_gather_mlp_reference(group_idx, full, center_pad, weights)
-    _check_kernel_layout("sa_gather_mlp", weights, k, cin, c1, c2, c3)
-    out = torch.empty((b, s, c3), dtype=torch.float32, device=dev)
+    check_tile_widths("sa_gather_mlp", [w for w, _ in weights])
+    out = torch.zeros((b, s, c3), dtype=torch.float32, device=dev)
+    rows = torch.empty(row_list_ints(b * s, k), dtype=torch.int32, device=dev)
     build.launch(
         "sa_gather_mlp", dev, group_idx.data_ptr(), full.data_ptr(),
         center_pad.data_ptr(), *(t.data_ptr() for layer in weights for t in layer),
-        out.data_ptr(), b, s, k, n, cin, c1, c2, c3,
+        out.data_ptr(), rows.data_ptr(), b, s, k, n, cin, c1, c2, c3,
     )
     sa_gather_mlp.launches += 1
     return out

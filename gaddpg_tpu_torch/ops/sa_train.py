@@ -3,31 +3,34 @@ kernels (counterpart of gaddpg_tpu/ops/pallas_sa_train.py).
 
 In train mode each BatchNorm normalises with the batch's own statistics,
 which exist only after the layer's output over the whole batch does, so
-the eval kernels' weight folding cannot run up front. Each level instead
-runs three streaming stats passes, then one forward:
+the eval kernels' weight folding cannot run up front. Per layer i:
 
-    stats_1 = pass 1: gather -> Dense_1, per-channel sum / sum of squares
-    stats_2 = pass 2: recompute layer 1 with BN_1(stats_1) -> Dense_2, ...
-    stats_3 = pass 3: recompute layers 1, 2 -> Dense_3, ...
-    pooled  = the eval kernel (K3, or K4 for group-all) on the Denses
-              folded with the three batch-stat affines
+    z_i     = h_{i-1} @ w_i + b_i          (h_0: the centred group rows)
+    stats_i = per-channel mean and E[z^2] - mean^2 of z_i over every row
+    h_i     = relu(z_i * a_i + c_i)         (`bn_affine` of stats_i)
+    pooled  = max of h_3 over each group
 
-with mean = sum / count, var = E[z^2] - mean^2 (no clamp, as the JAX
-kernels compute it), and bn(z) = z * a + c, a = scale / sqrt(var + eps),
-c = bias - mean * a (`bn_affine`).
+with var = E[z^2] - mean^2 unclamped, as the JAX kernels compute it.
 
-- `sa_train_fused` (grouped level; K5 stats passes, `csrc/sa_train_stats.cu`)
-- `groupall_train_fused` (group-all level; K6, the same stats kernel with
-  an identity gather and no centring)
+- `sa_train_fused` (grouped level; K5, `csrc/sa_train_stats.cu` on the
+  row-tile engine of `csrc/sa_tile.cuh`): one pass per layer over each
+  group's distinct slots (`ops.sa.distinct_slots`), each pass writing
+  z_i to a scratch tensor that the next pass reads, the statistics
+  weighted by the slots each row stands for, then a pooling pass. The
+  JAX kernel recomputes layers 1..i-1 in pass i and all three in a final
+  forward; this one computes each layer once.
+- `groupall_train_fused` (group-all level; K6, the same source): three
+  stats passes over every row of a cloud, recomputing the earlier
+  layers, then the eval kernel K4 on the Denses folded with the three
+  batch-stat affines.
 
 Each is a `torch.autograd.Function`. Its backward is the JAX package's
 rule: it keeps only the inputs and differentiates the plain version
 (`sa_train_reference` / `groupall_train_reference`) recomputed under
 autograd. Each returns pooled plus ((mean, var),) * 3, the statistics
 detached. A CPU tensor runs the plain version forward, a CUDA tensor the
-kernels or raises. `launches` counts the calls that launched the stats
-kernels (three passes each); the final forward counts in K3's or K4's
-own counter.
+kernels or raises. `launches` counts the calls that launched the
+kernels; K6's final forward counts in K4's own counter.
 
 Dense layers are ((w, b, scale, bias),) * 3 with w of shape (C_in, C_out),
 the Flax kernel layout, and scale / bias the BatchNorm's parameters.
@@ -36,9 +39,10 @@ the Flax kernel layout, and scale / bias the BatchNorm's parameters.
 import torch
 
 from gaddpg_tpu_torch.ops import build
-from gaddpg_tpu_torch.ops.sa import _check_widths, mlp_maxpool, sa_gather_mlp
+from gaddpg_tpu_torch.ops.sa import _check_widths, check_tile_widths, mlp_maxpool, row_list_ints
 
 BN_EPS = 1e-5
+ROW_TILE = 64  # rows of K5's tiles (csrc/sa_tile.cuh kRowTile): one partial sum each
 
 
 def bn_affine(mean, var, scale, bias, eps: float = BN_EPS):
@@ -66,9 +70,8 @@ def sa_train_reference(group_idx, full, cpad, dense):
     cpad (B, S, C_in) centre offsets (xyz in cols 0:3, zero elsewhere) ->
     pooled (B, S, C3), ((mean, var),) * 3 over B*S*K rows.
 
-    Computes layer by layer, once, where the kernels recompute layers
-    1..i for each stats pass; the function is the same as the JAX
-    package's `_xla_full`."""
+    Computes layer by layer over every slot; the function is the same as
+    the JAX package's `_xla_full`."""
     b, s, k = group_idx.shape
     rows = torch.gather(
         full, 1, group_idx.reshape(b, s * k, 1).long().expand(-1, -1, full.shape[-1])
@@ -100,19 +103,16 @@ def _check_dense(name, dense, cin):
             raise ValueError(f"{name}: BatchNorm scale/bias must be float32 of shape ({c},)")
 
 
-def _stats_passes(full, dense, idx=None, cpad=None):
-    """Launch the three stats passes of the K5/K6 kernel over `full` (B,
-    N, C_in): `idx` (B, S, K) and `cpad` (B, S, C_in) for a grouped level,
-    None for the group-all level (S = 1, K = N: every row of a cloud, not
-    centred) -> ((mean, var),) * 3 and the affines. The C entry rejects
+def _groupall_stats_passes(full, dense):
+    """Launch the three K6 stats passes over every row of `full` (B, N,
+    C_in) -> ((mean, var),) * 3 and the affines. The C entry rejects
     widths and tiles the kernel cannot take."""
     b, n, cin = full.shape
-    s, k = (1, n) if idx is None else idx.shape[1:]
     dev = full.device
     stats, affine = [], []
     for upto in (1, 2, 3):
         cout = dense[upto - 1][0].shape[1]
-        partial = torch.empty((b * s, 2, cout), dtype=torch.float32, device=dev)
+        partial = torch.empty((b, 2, cout), dtype=torch.float32, device=dev)
         mean = torch.empty(cout, dtype=torch.float32, device=dev)
         var = torch.empty(cout, dtype=torch.float32, device=dev)
         ptrs = []
@@ -121,9 +121,8 @@ def _stats_passes(full, dense, idx=None, cpad=None):
             if i < 2:
                 a, c = affine[i] if i < upto - 1 else (None, None)
                 ptrs += [0 if a is None else a.data_ptr(), 0 if c is None else c.data_ptr()]
-        build.launch("sa_train_stats", dev, 0 if idx is None else idx.data_ptr(),
-                     full.data_ptr(), 0 if cpad is None else cpad.data_ptr(), *ptrs,
-                     partial.data_ptr(), mean.data_ptr(), var.data_ptr(), b, s, k, n, cin,
+        build.launch("groupall_train_stats", dev, full.data_ptr(), *ptrs, partial.data_ptr(),
+                     mean.data_ptr(), var.data_ptr(), b, n, cin,
                      *(w.shape[1] for w, _, _, _ in dense), upto)
         _, _, scale, bias = dense[upto - 1]
         affine.append(bn_affine(mean, var, scale, bias))
@@ -139,13 +138,44 @@ def _folded(dense, affine):
 
 
 def _sa_train_kernels(group_idx, full, cpad, dense):
-    stats, affine = _stats_passes(full, dense, group_idx, cpad)
+    """K5: the compacted row list (laid out by the layer-1 pass), one
+    pass per layer and the pooling pass. Scratch is sized for every slot,
+    so nothing waits on the device for the count of distinct rows."""
+    b, s, k = group_idx.shape
+    n, cin = full.shape[1:]
+    check_tile_widths("sa_train_fused", [w for w, _, _, _ in dense])
+    dev = full.device
+    slots = b * s * k
+    widths = [cin] + [w.shape[1] for w, _, _, _ in dense]
+    rows = torch.empty(row_list_ints(b * s, k), dtype=torch.int32, device=dev)
+    # z_1 and z_3 share one buffer, z_2 the other: pass i reads z_{i-1}
+    zbuf = (torch.empty(slots * max(widths[1], widths[3]), dtype=torch.float32, device=dev),
+            torch.empty(slots * widths[2], dtype=torch.float32, device=dev))
+    tiles = -(-slots // ROW_TILE)
+    stats, zin, a, c = [], None, None, None
+    for layer, (w, w_bias, scale, bias) in enumerate(dense, 1):
+        cout = widths[layer]
+        zout = zbuf[(layer - 1) % 2]
+        partial = torch.empty((tiles, 2, cout), dtype=torch.float32, device=dev)
+        mean = torch.empty(cout, dtype=torch.float32, device=dev)
+        var = torch.empty(cout, dtype=torch.float32, device=dev)
+        build.launch("sa_train_layer", dev, group_idx.data_ptr(), full.data_ptr(),
+                     cpad.data_ptr(), *(0 if t is None else t.data_ptr() for t in (zin, a, c)),
+                     w.data_ptr(), w_bias.data_ptr(), zout.data_ptr(), partial.data_ptr(),
+                     rows.data_ptr(), mean.data_ptr(), var.data_ptr(), b, s, k, n,
+                     widths[layer - 1], cout, layer)
+        a, c = bn_affine(mean, var, scale, bias)
+        stats.append((mean, var))
+        zin = zout
+    pooled = torch.zeros((b, s, widths[3]), dtype=torch.float32, device=dev)
+    build.launch("sa_train_pool", dev, rows.data_ptr(), zin.data_ptr(), a.data_ptr(),
+                 c.data_ptr(), pooled.data_ptr(), b, s, k, widths[3])
     sa_train_fused.launches += 1
-    return sa_gather_mlp(group_idx, full, cpad, _folded(dense, affine)), stats
+    return pooled, tuple(stats)
 
 
 def _groupall_train_kernels(full, dense):
-    stats, affine = _stats_passes(full, dense)
+    stats, affine = _groupall_stats_passes(full, dense)
     groupall_train_fused.launches += 1
     return mlp_maxpool(full, _folded(dense, affine)), stats
 
@@ -223,7 +253,8 @@ def sa_train_fused(group_idx, full, cpad, dense):
 
     Differentiable in full, cpad and the 12 parameters (the backward
     recomputes `sa_train_reference`). CPU tensors: the plain version.
-    CUDA tensors: the K5 stats passes, then K3."""
+    CUDA tensors: the K5 kernels, each layer once over each group's
+    distinct slots."""
     b, s, _ = group_idx.shape
     cin = full.shape[-1]
     if (group_idx.dtype != torch.int32 or full.dtype != torch.float32

@@ -35,9 +35,9 @@ import torch
 
 from gaddpg_tpu.envs import assets as jassets
 from gaddpg_tpu_torch.envs import assets
-from gaddpg_tpu_torch.envs.grasp_env import EnvParams, PandaGraspEnv
+from gaddpg_tpu_torch.envs.grasp_env import EnvParams, PandaGraspEnv, state_from_numpy
 from torch_env_common import (
-    assert_phys_close, make_envs, observe_draws, port_state, scenes,
+    assert_phys_close, make_envs, numpy_tree, observe_draws, port_state, scenes,
 )
 
 SEEDS = (0, 1, 2, 3)
@@ -115,6 +115,19 @@ def test_reset_scene_matches_jax(reset):
     np.testing.assert_array_equal(ob.num_points.numpy(), np.asarray(job.num_points))
     np.testing.assert_allclose(st.init_obj_z.numpy(), np.asarray(jst.init_obj_z), atol=2e-5)
     assert max(_reservoir_share(ob, jst, job)) <= 0.03
+
+
+def test_state_from_numpy_defaults_to_the_card(reset):
+    """Like `from_flax`, `state_from_numpy` lands on the card unless told
+    `device="cpu"`, and raises without one."""
+    tree = numpy_tree(reset[1])
+    st = state_from_numpy(tree, device="cpu")
+    assert st.phys.obj.pos.device.type == "cpu" and st.pc.points.device.type == "cpu"
+    if torch.cuda.is_available():
+        assert state_from_numpy(tree).phys.obj.pos.device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            state_from_numpy(tree)
 
 
 @pytest.fixture(scope="module")

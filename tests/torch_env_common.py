@@ -30,7 +30,7 @@ def numpy_tree(x):
 
 
 def port_state(jax_state):
-    return state_from_numpy(numpy_tree(jax_state))
+    return state_from_numpy(numpy_tree(jax_state), device="cpu")
 
 
 def scenes(jenv, seeds):
