@@ -22,7 +22,10 @@ Phases, each of which must pass:
      out-of-range indices, repeats that differ from slot 0) against the
      plain versions on the zero-row form of the same inputs, at the same
      bounds (K5's gradients where the indices lie in [0, N)), two calls
-     bit-identical;
+     bit-identical; and K4 (wgmma, 3xTF32) within 1e-4 at B = 1, 3, 256
+     and 1024 (partial and ragged 128-row tiles), on a batch whose last
+     layer's pre-activations are all negative, and at the shape of K6's
+     final forward, two calls bit-identical;
   3. drive the serving path, `make_select_action` on a full-width agent
      state from a seeded generator, at batch 1, 8 and 1024, with the
      launch counters set to 0 just before and read just after (each call
@@ -32,9 +35,8 @@ Phases, each of which must pass:
   4. drive `PolicyRunner` on synthetic depth frames through APPROACH ->
      RETRACT -> DONE;
   5. time each serving kernel and its plain version at the serving shapes
-     (CUDA events, median), with K3's distinct-row share and both its
-     bounds (distinct rows at 165 TFLOP/s, and every slot at 67 TFLOP/s
-     as PRs 1-3 stated it), select_action per batch (host clock) and its
+     (CUDA events, median), with K3's distinct-row share and its bound
+     (distinct rows at 165 TFLOP/s), select_action per batch (host clock) and its
      device busy time and top device activities (torch.profiler).
      Phase 4 reports the runner's per-request latency;
   6. drive the learner: `make_ddpg_update` and `make_bc_update` on a
@@ -54,10 +56,11 @@ Phases, each of which must pass:
      clock), device busy time, idle share
      and where the device time goes (torch.profiler), peak memory, and
      K5/K6 per level against their plain versions and bounds, with K5's
-     distinct-row share and both its bounds, on synthetic clouds and on
+     distinct-row share, on synthetic clouds and on
      bench.py's learner batch;
   7. hold K7 (the contact scan) against its plain version on the card
-     over 60 substeps at batch 8 and 1024, on contact-rich states (objects
+     over 60 substeps at batch 8 and over 75, 150 and 200 substeps at
+     batch 64 and 1024, on contact-rich states (objects
      at the closing gripper and on the table, as
      tests/test_pallas_physics.py builds them, tiled with seeded jitter)
      and on states from a live env rollout with the fingers closing:
@@ -69,7 +72,14 @@ Phases, each of which must pass:
      2e-4 m and 0.19 m/s over 60 substeps). Such envs, at most 3% of a
      batch, are counted, and the kernel's departure there, in units of
      the bounds, must stay within 4 times the largest departure of the
-     plain version itself over 8 one-ulp nudges;
+     plain version itself over 8 one-ulp nudges. Beyond 60 substeps the
+     nudges move the whole object state, 32 of them measure each env's
+     spread, every env off the bounds must be chaotic, their count may
+     reach one nudge's own count on the batch, and their departures,
+     largest first, must stay within 4 times the departures one nudge
+     gives the plain version on the same batch, rank by rank
+     (check_contact_scan says why). A B=64 launch must give the first
+     64 envs of the B=1024 launch bit for bit;
   8. drive the env path, `PandaGraspEnv(EnvParams(use_planner=False),
      library_from_index("ycb", "train"))` at batch 1024 (bench.py's env
      count): `reset` from a seeded generator, 20 steps of the goal-servo
@@ -83,8 +93,8 @@ Phases, each of which must pass:
      lift rate over valid scenes; then time `step_batched` (host clock,
      median of 7 after a warm-up, bench.py's constant action), its device
      busy time, idle share and top device activities (torch.profiler),
-     `reset` and `retract_batched`, and K7 at n = 75 against its plain
-     version and its bound (CUDA events);
+     `reset` and `retract_batched`, and K7 against its plain version and
+     its bound (CUDA events) at n = 75 (B = 1024 and 64) and n = 200;
   9. run the same 8 scenes through `reset_scene`, 3 `step_batched` calls
      (each from the CPU's state carried over) and `retract_batched` on the
      card and on the CPU with the same random draws (after it, phases 5
@@ -157,12 +167,16 @@ BC_PER_UPDATE = {k: v // 5 for k, v in DDPG_PER_UPDATE.items()}
 TRAIN_BATCH, TRAIN_POINTS = 256, 1030  # bench.py's learner envelope
 TIMED_UPDATES = 3
 CHECK_BATCHES = (8, 256)      # kernels against their plain versions
+K4_BATCHES = (1, 3, 256, 1024)  # K4 on one, partial and full 128-row tiles
 MAIN_BATCHES = (1, 8, 1024)   # one robot, entry(), bench.py's env count
 TIME_BATCHES = (1, 1024)      # kernel timings; the JSON line sums the last
 ENV_BATCH = 1024              # bench.py's env count
 ENV_STEPS = 20                # RL_MAX_STEP
-K7_BATCHES = (8, 1024)
-K7_SUBSTEPS = 60              # tests/test_pallas_physics.py's horizon
+# K7 against its plain version: (batch, substeps); 60 is
+# tests/test_pallas_physics.py's horizon, 75 a step, 150 the retract's
+# close, 200 the reset's settle; 64 is TrainConfig's env count
+K7_CASES = ((8, 60), (64, 75), (64, 150), (64, 200), (1024, 75), (1024, 150), (1024, 200))
+K7_TIMED = ((1024, 75), (64, 75), (1024, 200))  # the first goes into the JSON line
 # K7 output columns and their bounds (tests/test_pallas_physics.py:59-66)
 K7_BOUNDS = {"pos": (slice(0, 3), 2e-5), "quat": (slice(3, 7), 2e-5),
              "linvel": (slice(7, 10), 2e-4), "angvel": (slice(10, 13), 2e-3),
@@ -176,6 +190,21 @@ ARM_SERVO_QUANTUM = 30.0 * 2e-3 * 2e-3  # arm_acc_limit * dt^2, rad
 ULP_PROBES = 8
 CHAOTIC_SHARE = 0.03
 CHAOS_FACTOR = 4.0
+# over more substeps than the JAX suite's 60, closing grasps are chaotic
+# in 7-9% of the envs (one one-ulp nudge of the plain version's object
+# positions moves that many past the bounds; an IEEE kernel summing in
+# another order leaves 3.7% at n = 75 and 6.2% at n = 200), and a
+# trajectory can be sensitive to the last bit of the velocities while
+# position nudges barely move it: there a nudge moves every state float
+# (position, orientation, velocities) by one ulp, ULP_PROBES_LONG nudges
+# measure an env's spread (each off env must be chaotic), the share is
+# held to one nudge's own share, and the departures, ranked, to
+# CHAOS_FACTOR times that nudge's ranked departures on the same batch (an
+# IEEE kernel leaves an env at 547 bounds whose 32 nudges reach 44: at
+# that horizon a chaotic env's outcome is not bounded by its own nudges,
+# but the batch's distribution of outcomes is)
+K7_JAX_SUBSTEPS = 60
+ULP_PROBES_LONG = 32
 HELD_RADIUS = 0.15  # m, hand origin to the centre of an object in its fingers
 # card vs CPU after a step: the arm may differ by a servo quantum (up to
 # 2.4e-4 rad), which moves the camera by up to about 1e-4 m and flips
@@ -363,13 +392,12 @@ def train_grads(fn, kernel, args):
 
 
 def train_work(kernel, args):
-    """(bytes, flops, all-slot flops) the function of a train SA level
-    needs on these inputs: each input read once, the pooled output and
-    statistics written once, and each of the three Dense layers once per
-    row: for a grouped level (K5), once per distinct slot of each group,
-    the rows that give the pooled max and the batch sums; the all-slot
-    count (every one of the B*S*K slots) is the bound PRs 1-3 stated.
-    The group-all level (K6) has no padding: every row counts. (K6
+    """(bytes, flops) the function of a train SA level needs on these
+    inputs: each input read once, the pooled output and statistics
+    written once, and each of the three Dense layers once per row: for a
+    grouped level (K5), once per distinct slot of each group, the rows
+    that give the pooled max and the batch sums. The group-all level (K6)
+    has no padding: every row counts. (K6
     recomputes layers 1..i-1 in its stats pass i and runs the layers
     again in its final forward: a property of its design, which the bound
     does not credit.)"""
@@ -384,10 +412,10 @@ def train_work(kernel, args):
         idx, full, cpad, _ = args
         b, s, k = idx.shape
         nbytes = idx.numel() * 4 + (full.numel() + cpad.numel() + b * s * c3) * f32
-        return nbytes + pbytes + stats, 2 * distinct_rows(idx) * macs, 2 * b * s * k * macs
+        return nbytes + pbytes + stats, 2 * distinct_rows(idx) * macs
     full = args[0]
     b, n, _ = full.shape
-    return (full.numel() + b * c3) * f32 + pbytes + stats, 2 * b * n * macs, 2 * b * n * macs
+    return (full.numel() + b * c3) * f32 + pbytes + stats, 2 * b * n * macs
 
 
 def contact_scan_work(args, n):
@@ -414,6 +442,20 @@ def contact_scan_work(args, n):
     per_sphere = 66 + 11 + 306 + 11 + 4 * (99 + 87 + 159 + 25 + 60) + 3 * 25
     per_env = 32 * per_sphere + 780 + 48 * 31
     return nbytes, n * b * per_env
+
+
+def launches_note(kernel):
+    """The kernel's launches per call of the main path's entry points."""
+    if kernel == "contact_scan":
+        return (f"launches: {RESET_K7} per reset, {STEP_K7} per step, "
+                f"{RETRACT_K7} per retract")
+    return (f"launches: {PER_CALL[kernel]} per select_action, {DDPG_PER_UPDATE[kernel]} per "
+            f"DDPG update, {BC_PER_UPDATE[kernel]} per BC update")
+
+
+def fmt_list(t):
+    """A 1-d tensor's values as a short bracketed list."""
+    return "[" + ", ".join(f"{v:.1f}" for v in t.tolist()) + "]"
 
 
 def physics_ratio(a, b):
@@ -549,6 +591,47 @@ class Smoke:
                     log(f"[check] {kernel:13s} {label} B={batch:4d} "
                         f"shape={tuple(got.shape)} max_abs_err={err:.3e} ok")
 
+    def check_k4(self, gen):
+        """K4 (mlp_maxpool, wgmma in 3xTF32) against its plain version
+        within 1e-4 at B = 1, 3, 256 and 1024 (one, two, 64 and 256 full
+        128-row tiles: partial and ragged tiles included) on the serving
+        shapes' SA3 input, on a batch whose last layer's pre-activations
+        are all negative (a max of zeros), and at the shape of K6's final
+        forward (B=256, the learner state's SA3 weights folded with the
+        batch statistics); two calls bit-identical each. Times each
+        (CUDA events)."""
+        sa, sa_train = self.sa, self.sa_train
+        for batch in K4_BATCHES:
+            ps = synthetic_point_state(batch, gen, self.hand_points, self.device)
+            (label, (full, weights)), = self.level_inputs(ps)["mlp_maxpool"]
+            cases = [(f"{label} B={batch}", full, weights)]
+            if batch == 3:
+                (w1, b1), layer2, (w3, b3) = weights
+                cases.append((f"{label} B={batch} layer 3 all negative", full,
+                              ((w1, b1), layer2, (w3, b3 - 1e4))))
+            if batch == TRAIN_BATCH:
+                tps = self.learner_batch(batch, gen)["point_state"]
+                (_, _, (tfull, dense)), = [c for c in self.train_level_inputs(tps)
+                                          if c[1] == "groupall_train"]
+                stats = sa_train.groupall_train_reference(tfull, dense)[1]
+                affine = [sa_train.bn_affine(m, v, sc, bi)
+                          for (m, v), (_, _, sc, bi) in zip(stats, dense)]
+                cases.append((f"K6 final forward B={batch}", tfull,
+                              sa_train._folded(dense, affine)))
+            for name, x, ws in cases:
+                got, again = sa.mlp_maxpool(x, ws), sa.mlp_maxpool(x, ws)
+                want = sa.mlp_maxpool_reference(x, ws)
+                torch.cuda.synchronize()
+                torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+                if not torch.equal(got, again):
+                    raise AssertionError(f"mlp_maxpool {name}: two calls differ")
+                err = (got - want).abs().max().item()
+                self.errors["mlp_maxpool"] = max(self.errors["mlp_maxpool"], err)
+                ms = cuda_ms(lambda: sa.mlp_maxpool(x, ws))
+                log(f"[check] mlp_maxpool   {name}: max_abs_err={err:.3e}, "
+                    f"{int((want == 0).sum())} of {want.numel()} outputs 0, two calls "
+                    f"bit-identical, kernel {ms:.4f} ms ok")
+
     # -- phase 3 --------------------------------------------------------------
     def main_path(self, gen):
         from gaddpg_tpu_torch.agents import make_select_action
@@ -675,16 +758,14 @@ class Smoke:
         c3 = weights[-1][0].shape[1]
         return full.numel() * f32 + wbytes + b * c3 * f32, 2 * b * n * macs
 
-    def k3_note(self, kernel, args):
-        """For K3: the distinct-row share of its groups and the bound PRs
-        1-3 stated (every slot, at the fp32 CUDA-core peak)."""
-        if kernel != "sa_gather_mlp":
+    @staticmethod
+    def distinct_note(kernel, args):
+        """For K3 and K5: the share of their groups' slots that are
+        distinct, the rows their bound counts."""
+        if kernel not in ("sa_gather_mlp", "sa_train"):
             return ""
-        idx, _, _, weights = args
-        macs = sum(w.shape[0] * w.shape[1] for w, _ in weights)
-        old, _ = bound_ms(self.work(kernel, args)[0], 2 * idx.numel() * macs)
-        return (f"; distinct rows {distinct_rows(idx) / idx.numel():.4f} of the slots; "
-                f"all-slot 67 TFLOP/s bound {old:.6f} ms")
+        idx = args[0]
+        return f"; distinct rows {distinct_rows(idx) / idx.numel():.4f} of the slots"
 
     def time_serving(self, kernel, label, batch, args):
         """One serving kernel and its plain version (CUDA events) and the
@@ -695,7 +776,8 @@ class Smoke:
         bms, by = bound_ms(nbytes, flops, kernel_peak(kernel))
         log(f"[time] {kernel:13s} {label} B={batch:4d} kernel {ms:.4f} ms, "
             f"plain {plain:.4f} ms, bound {bms:.6f} ms ({by}; "
-            f"{nbytes} B, {flops} FLOP){self.k3_note(kernel, args)}")
+            f"{nbytes} B, {flops} FLOP){self.distinct_note(kernel, args)}; "
+            f"{launches_note(kernel)}")
         return ms, plain, nbytes, flops
 
     def timings(self, select, inputs, gen):
@@ -1058,26 +1140,17 @@ class Smoke:
                 raise AssertionError(f"learner B=8: {group}: {off} of {total} moves differ")
         return serr
 
-    def k5_note(self, kernel, args, nbytes, all_flops):
-        """For K5: the distinct-row share of its groups and the bound PRs
-        1-3 stated (every slot, at the fp32 CUDA-core peak)."""
-        if kernel != "sa_train":
-            return ""
-        idx = args[0]
-        return (f"; distinct rows {distinct_rows(idx) / idx.numel():.4f} of the slots; "
-                f"all-slot 67 TFLOP/s bound {bound_ms(nbytes, all_flops)[0]:.6f} ms")
-
     def time_train(self, label, kernel, args):
         """One train kernel's forward and its plain version (CUDA events)
         and the function's bound -> (ms, plain ms, bytes, flops)."""
         with torch.no_grad():
             ms = cuda_ms(lambda: self.wrappers[kernel](*args), reps=5, rounds=5)
             plain = cuda_ms(lambda: self.train_reference(kernel)(*args), reps=2, rounds=3)
-        nbytes, flops, all_flops = train_work(kernel, args)
+        nbytes, flops = train_work(kernel, args)
         bms, by = bound_ms(nbytes, flops, kernel_peak(kernel))
         log(f"[time] {kernel:14s} {label:10s} B={args[0].shape[0]}: kernel {ms:.4f} ms, "
             f"plain {plain:.4f} ms, bound {bms:.6f} ms ({by}; {nbytes} B, {flops} FLOP)"
-            + self.k5_note(kernel, args, nbytes, all_flops))
+            + self.distinct_note(kernel, args))
         return ms, plain, nbytes, flops
 
     def cloud_timings(self, point_state):
@@ -1177,23 +1250,43 @@ class Smoke:
         return p, [t.contiguous() for t in fast.pack_contact_scan(p, n, state, sph, mass,
                                                                    inertia, hand)]
 
+    def nudged(self, s16, n):
+        """A copy of the contact scan's state16 with its object position
+        (over more than K7_JAX_SUBSTEPS substeps, every object float)
+        moved by one ulp in seeded random directions."""
+        s16 = s16.clone()
+        cols = slice(0, 3) if n <= K7_JAX_SUBSTEPS else slice(0, 13)
+        gen = torch.Generator(device=self.device).manual_seed(11)
+        toward = s16[:, cols] + torch.randn(s16[:, cols].shape, generator=gen,
+                                            device=self.device).sign()
+        s16[:, cols] = torch.nextafter(s16[:, cols], toward)
+        return s16
+
     def chaotic_spread(self, p, n, args, envs, want):
         """(len(envs), 16) largest move of the plain version's output over
-        ULP_PROBES runs whose object positions are nudged by one ulp (one
-        call, the probes stacked along the batch): how far float32
-        rounding alone moves each env's trajectory."""
+        ULP_PROBES (over more than K7_JAX_SUBSTEPS substeps,
+        ULP_PROBES_LONG) runs whose state is nudged by one ulp
+        (`nudged`; one call, the probes stacked along the batch):
+        how far float32 rounding alone moves each env's trajectory."""
+        probes = ULP_PROBES if n <= K7_JAX_SUBSTEPS else ULP_PROBES_LONG
         # hand (n, B, 13) and sph3 (3, B, NS) carry the env batch second
         sub = [a[:, envs] if i in (1, 2) else a[envs] for i, a in enumerate(args)]
-        reps = [t.repeat(1, ULP_PROBES, 1) if i in (1, 2) else
-                t.repeat(ULP_PROBES, *([1] * (t.dim() - 1))) for i, t in enumerate(sub)]
-        s16 = reps[0].clone()
-        gen = torch.Generator(device=self.device).manual_seed(11)
-        toward = s16[:, :3] + torch.randn(s16[:, :3].shape, generator=gen,
-                                          device=self.device).sign()
-        s16[:, :3] = torch.nextafter(s16[:, :3], toward)
-        out = self.cs.contact_scan_reference(p, n, s16, *[t.contiguous() for t in reps[1:]])
-        dev = (out.view(ULP_PROBES, len(envs), 16) - want[envs]).abs()
+        reps = [t.repeat(1, probes, 1) if i in (1, 2) else
+                t.repeat(probes, *([1] * (t.dim() - 1))) for i, t in enumerate(sub)]
+        out = self.cs.contact_scan_reference(p, n, self.nudged(reps[0], n),
+                                             *[t.contiguous() for t in reps[1:]])
+        dev = (out.view(probes, len(envs), 16) - want[envs]).abs()
         return dev.amax(dim=0)
+
+    def nudged_departure(self, p, n, args, want, tol):
+        """What one one-ulp nudge of every state (`nudged`) does to the
+        plain version: each env's departure in units of the bounds (B,),
+        largest first, and how many envs it moves past the bounds (the
+        batch's own chaotic count)."""
+        out = self.cs.contact_scan_reference(p, n, self.nudged(args[0], n), *args[1:])
+        r = ((out[:, :15] - want[:, :15]).abs() / tol[:15]).amax(dim=1)
+        off = (r > 1) | (out[:, 15] != want[:, 15])
+        return r.sort(descending=True).values, int(off.sum())
 
     def check_contact_scan(self, env, gen):
         """K7 against its plain version on the card. Where an env's
@@ -1201,26 +1294,45 @@ class Smoke:
         version itself moves past the bounds when its object position is
         nudged by one ulp), the kernel's departure from the plain version,
         in units of the bounds, is held within CHAOS_FACTOR times the
-        plain version's own one-ulp departure instead; at most
-        CHAOTIC_SHARE of the envs may be such."""
+        plain version's own one-ulp departure instead. Over more than
+        K7_JAX_SUBSTEPS substeps each such env must be chaotic, and the
+        k-th largest departure of the kernel's off envs must be within
+        CHAOS_FACTOR times the k-th largest departure that one one-ulp
+        nudge of every state gives the plain version on the same batch,
+        for every k. At most CHAOTIC_SHARE of the envs of the largest
+        batch at each n may be such, or over more than K7_JAX_SUBSTEPS
+        substeps as many as that nudge moves past the bounds
+        (`nudged_departure`). A smaller batch holds the first envs of the
+        largest: its launch must give their rows bit for bit, and no more
+        of its envs may be off the bounds than the largest batch excused
+        (at B=64 one env is 1.6% of the batch, so the share is counted
+        over the whole batch the envs come from), each held as above
+        (rank by rank against the largest batch's nudge)."""
         cs = self.cs
-        rich = self.contact_rich_states(max(K7_BATCHES), gen)
+        rich = self.contact_rich_states(max(b for b, _ in K7_CASES), gen)
         live = self.rollout_states(env, gen)
         self.k7_live = live
+        cases = sorted(K7_CASES, key=lambda c: (c[1], -c[0]))  # largest batch first
         for kind, full in (("contact-rich", rich), ("rollout", live)):
-            for batch in K7_BATCHES:
+            # n -> (the largest batch's output, how many envs it excused, one
+            # nudge's departures over that batch, largest first)
+            largest = {}
+            for batch, n in cases:
                 state = dataclasses.replace(
                     full[0], arm=type(full[0].arm)(*(t[:batch] for t in (
                         full[0].arm.q, full[0].arm.qd, full[0].arm.q_target))),
                     obj=type(full[0].obj)(*(t[:batch] for t in (
                         full[0].obj.pos, full[0].obj.quat, full[0].obj.linvel, full[0].obj.angvel))))
-                p, args = self.scan_args(state, *(t[:batch] for t in full[1:]), K7_SUBSTEPS)
-                got = cs.contact_scan(p, K7_SUBSTEPS, *args)
-                again = cs.contact_scan(p, K7_SUBSTEPS, *args)
-                want = cs.contact_scan_reference(p, K7_SUBSTEPS, *args)
+                p, args = self.scan_args(state, *(t[:batch] for t in full[1:]), n)
+                got = cs.contact_scan(p, n, *args)
+                again = cs.contact_scan(p, n, *args)
+                want = cs.contact_scan_reference(p, n, *args)
                 torch.cuda.synchronize()
                 if not torch.equal(got, again):
-                    raise AssertionError(f"K7 {kind} B={batch}: two launches differ")
+                    raise AssertionError(f"K7 {kind} B={batch} n={n}: two launches differ")
+                if n in largest and not torch.equal(got, largest[n][0][:batch]):
+                    raise AssertionError(f"K7 {kind} B={batch} n={n}: differs from the same "
+                                         f"envs in the B={len(largest[n][0])} launch")
                 diff = (got - want).abs()
                 tol = torch.zeros(16, device=self.device)
                 for sl, t in K7_BOUNDS.values():
@@ -1228,30 +1340,57 @@ class Smoke:
                 off = ((diff[:, :15] > tol[:15]).any(dim=1)
                        | (got[:, 15] != want[:, 15])).nonzero()[:, 0]
                 note = ""
+                nudge_r = None
                 if len(off):
-                    if len(off) > CHAOTIC_SHARE * batch:
-                        raise AssertionError(f"K7 {kind} B={batch}: {len(off)} envs off the bounds")
-                    spread = self.chaotic_spread(p, K7_SUBSTEPS, args, off, want)
+                    if n in largest:
+                        nudge_r = largest[n][2]
+                        if len(off) > largest[n][1]:
+                            raise AssertionError(
+                                f"K7 {kind} B={batch} n={n}: {len(off)} envs off the bounds, "
+                                f"more than the {largest[n][1]} excused at B={len(largest[n][0])}")
+                    else:
+                        cap = CHAOTIC_SHARE * batch
+                        if n > K7_JAX_SUBSTEPS:
+                            nudge_r, nudge_off = self.nudged_departure(p, n, args, want, tol)
+                            cap = max(cap, nudge_off)
+                            note = f"; one one-ulp nudge moves {nudge_off} envs of the plain version"
+                        if len(off) > cap:
+                            raise AssertionError(
+                                f"K7 {kind} B={batch} n={n}: {len(off)} envs off the bounds")
+                    spread = self.chaotic_spread(p, n, args, off, want)
                     # departures in units of each field's bound
                     r_kernel = (diff[off, :15] / tol[:15]).amax(dim=1)
                     r_plain = (spread[:, :15] / tol[:15]).amax(dim=1)
                     flag_ok = (got[off, 15] == want[off, 15]) | (spread[:, 15] > 0)
-                    if not ((r_plain > 1) & (r_kernel <= CHAOS_FACTOR * r_plain)).all() \
-                            or not flag_ok.all():
+                    if n > K7_JAX_SUBSTEPS:
+                        # each env chaotic; the kernel's departures, largest
+                        # first, within CHAOS_FACTOR of one nudge's, rank by rank
+                        ranked = r_kernel.sort(descending=True).values
+                        ratio = ranked / nudge_r[:len(off)].clamp(min=1e-30)
+                        held = bool((r_plain > 1).all()) and bool(
+                            (ranked <= CHAOS_FACTOR * nudge_r[:len(off)]).all())
+                        note += (f"; largest departures, kernel {fmt_list(ranked[:5])}, one "
+                                 f"nudge {fmt_list(nudge_r[:5])}, largest rank ratio "
+                                 f"{ratio.max().item():.2f}")
+                    else:
+                        held = bool(((r_plain > 1) & (r_kernel <= CHAOS_FACTOR * r_plain)).all())
+                    if not held or not flag_ok.all():
                         raise AssertionError(
-                            f"K7 {kind} B={batch}: envs {off.tolist()}: kernel off by "
+                            f"K7 {kind} B={batch} n={n}: envs {off.tolist()}: kernel off by "
                             f"{r_kernel.tolist()} bounds, the plain version's one-ulp spread "
-                            f"{r_plain.tolist()} bounds")
-                    note = (f"; {len(off)} chaotic envs, kernel off by up to "
+                            f"{r_plain.tolist()} bounds; one nudge, largest first: "
+                            f"{fmt_list(nudge_r[:len(off)]) if nudge_r is not None else '-'}")
+                    note += (f"; {len(off)} chaotic envs, kernel off by up to "
                             f"{r_kernel.max().item():.1f} bounds where one-ulp nudges move the "
                             f"plain version by up to {r_plain.max().item():.1f} (kernel/plain "
                             f"ratio at most {(r_kernel / r_plain).max().item():.2f})")
                     keep = torch.ones(batch, dtype=torch.bool, device=self.device)
                     keep[off] = False
                     diff = diff[keep]
+                largest.setdefault(n, (got, len(off), nudge_r))
                 errs = {name: diff[:, sl].max().item() for name, (sl, _) in K7_BOUNDS.items()}
                 self.errors["contact_scan"] = max(self.errors["contact_scan"], *errs.values())
-                log(f"[check] contact_scan   {kind:12s} B={batch:4d} n={K7_SUBSTEPS}: "
+                log(f"[check] contact_scan   {kind:12s} B={batch:4d} n={n:3d}: "
                     + ", ".join(f"{k} {v:.2e}" for k, v in errs.items())
                     + f"{note}; gripper contact in {int(got[:, 15].sum())} envs; "
                     "two launches bit-identical ok")
@@ -1344,15 +1483,21 @@ class Smoke:
         retract_ms = host_ms(lambda: env.retract_batched(stepped), reps=3)
         log(f"[time] reset B={ENV_BATCH}: {reset_ms:.3f} ms; retract_batched B={ENV_BATCH}: "
             f"{retract_ms:.3f} ms (host clock, synchronised, median of 3 after a warm-up)")
-        n = 75
-        p, args = self.scan_args(*self.k7_live, n)
-        kms = cuda_ms(lambda: self.cs.contact_scan(p, n, *args), reps=5, rounds=5)
-        plain = cuda_ms(lambda: self.cs.contact_scan_reference(p, n, *args), reps=1, rounds=3)
-        nbytes, flops = contact_scan_work(args, n)
-        bms, by = bound_ms(nbytes, flops)
-        log(f"[time] contact_scan B={ENV_BATCH} n={n}: kernel {kms:.4f} ms, plain {plain:.4f} ms, "
-            f"bound {bms:.6f} ms ({by}; {nbytes} B, {flops} FLOP)")
-        return {"ms": kms, "plain_ms": plain, "bytes": nbytes, "flops": flops}
+        totals = None
+        for batch, n in K7_TIMED:
+            live = (map_state(self.k7_live[0], slice(0, batch)),
+                    *(t[:batch] for t in self.k7_live[1:]))
+            p, args = self.scan_args(*live, n)
+            kms = cuda_ms(lambda: self.cs.contact_scan(p, n, *args), reps=5, rounds=5)
+            plain = cuda_ms(lambda: self.cs.contact_scan_reference(p, n, *args), reps=1, rounds=3)
+            nbytes, flops = contact_scan_work(args, n)
+            bms, by = bound_ms(nbytes, flops)
+            log(f"[time] contact_scan B={batch} n={n}: kernel {kms:.4f} ms, plain {plain:.4f} ms, "
+                f"bound {bms:.6f} ms ({by}; {nbytes} B, {flops} FLOP); "
+                f"{launches_note('contact_scan')}")
+            if totals is None:
+                totals = {"ms": kms, "plain_ms": plain, "bytes": nbytes, "flops": flops}
+        return totals
 
     # -- phase 9: the env on the card against the CPU --------------------------------------
     def env_card_vs_cpu(self, env, env_cpu):
@@ -1516,6 +1661,7 @@ def main() -> int:
         with torch.no_grad():  # serving: no autograd graph anywhere
             smoke = Smoke()
             smoke.check_kernels(gen)
+            smoke.check_k4(gen)
         smoke.check_train_kernels(gen)  # gradients: outside no_grad
         smoke.check_compaction(gen)
         with torch.no_grad():

@@ -15,7 +15,8 @@ n substeps, the flag or-ed with any gripper contact on the way.
 `contact_scan` dispatches on the device of its inputs: a CPU tensor runs
 `contact_scan_reference` (plain PyTorch on (B, 4 NS) lanes, a Python
 loop over the substeps), a CUDA tensor launches the kernel
-(`csrc/contact_scan.cu`, one warp per env) or raises. It counts its
+(`csrc/contact_scan.cu`: one warp per env, the env's hand trajectory
+staged in shared memory) or raises. It counts its
 launches in `contact_scan.launches`.
 """
 
@@ -251,7 +252,8 @@ def kernel_params(p):
 def contact_scan(p, n, state16, hand, sph3, radii, mass1, inert, fn_clamp, tgt):
     """Run n physics substeps for every env (shapes in the module
     docstring; NS must be 32). CPU tensors: `contact_scan_reference`.
-    CUDA tensors: the K7 kernel, one launch."""
+    CUDA tensors: the K7 kernel, one launch; it raises where a block's
+    staged trajectories exceed shared memory (n > 1117)."""
     b = state16.shape[0]
     shapes = {"state16": (state16, (b, 16)), "hand": (hand, (n, b, 13)),
               "sph3": (sph3, (3, b, NS)), "radii": (radii, (b, NS)), "mass1": (mass1, (b, 1)),

@@ -1,10 +1,13 @@
 // Shared pieces of the port's kernels: the error-string export every
-// library carries, exact squared distances, and the register-tiled fp32
-// dense layer of the group-all set-abstraction kernels (eval K4, train
-// K6; the grouped K3/K5 run on the tensor cores, sa_tile.cuh).
+// library carries, exact squared distances, the TF32 split of the 3xTF32
+// products, and the register-tiled fp32 dense layer of the group-all
+// train statistics (K6; K3/K5 run on the tensor cores, sa_tile.cuh, and
+// K4 on wgmma, mlp_maxpool.cu).
 #pragma once
 
 #include <cuda_runtime.h>
+
+#include <cstdint>
 
 extern "C" const char* gaddpg_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
@@ -26,6 +29,20 @@ __device__ __forceinline__ float sq_dist(float ax, float ay, float az,
                    __fmul_rn(dz, dz));
 }
 
+// The TF32 value nearest x, ties away from zero (its low 13 bits zero).
+__device__ __forceinline__ uint32_t to_tf32(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return r;
+}
+
+// x = hi + lo + O(2^-22 x), hi and lo TF32: the operands of a 3xTF32
+// product (ops/sa.py `tf32_split` is the same split in PyTorch)
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  hi = to_tf32(x);
+  lo = to_tf32(x - __uint_as_float(hi));
+}
+
 // A thread's register tile in dense_layer: kTileRows rows x kTileCols
 // adjacent output columns.
 constexpr int kTileRows = 8;
@@ -35,12 +52,10 @@ static_assert(kTileCols == 4, "dense_layer loads one float4 of w per input chann
 // What dense_layer does with z = in @ w + b:
 //  kStore:   out[k][c] = relu(z * gain[c] + offset[c]) (no affine when
 //            gain is null), rows x cout in shared memory;
-//  kMaxPool: out[c] = max over k of the same (out is a shared row,
-//            zero-initialised by the caller);
 //  kStats:   per-channel sum and sum of squares of z itself (no affine,
 //            no ReLU) over the rows, one partial per row group: out is
 //            [groups][2][cout] in shared memory (dense_groups).
-enum class Epilogue { kStore, kMaxPool, kStats };
+enum class Epilogue { kStore, kStats };
 
 // Row groups dense_layer splits `threads` into for `cout` columns: when
 // there are fewer column groups than threads, the spare threads split
@@ -117,25 +132,14 @@ __device__ __forceinline__ void dense_layer(
               red[t] += z;
               sq[t] = fmaf(z, z, sq[t]);
             } else {
-              const float v = fmaxf(gain != nullptr ? z * mul[t] + add[t] : z, 0.0f);
-              if (kMode == Epilogue::kMaxPool) {
-                red[t] = fmaxf(red[t], v);
-              } else {
-                out[(k0 + r) * cout + c + t] = v;
-              }
+              out[(k0 + r) * cout + c + t] =
+                  fmaxf(gain != nullptr ? z * mul[t] + add[t] : z, 0.0f);
             }
           }
         }
       }
     }
-    if (kMode == Epilogue::kMaxPool) {
-      // ReLU outputs are >= 0, so 0 is the identity of the max and the
-      // non-negative floats order like their bit patterns as ints
-#pragma unroll
-      for (int t = 0; t < kTileCols; ++t) {
-        atomicMax(reinterpret_cast<int*>(out + c + t), __float_as_int(red[t]));
-      }
-    } else if (kMode == Epilogue::kStats) {
+    if (kMode == Epilogue::kStats) {
 #pragma unroll
       for (int t = 0; t < kTileCols; ++t) {
         out[(2 * g) * cout + c + t] = red[t];
@@ -143,36 +147,6 @@ __device__ __forceinline__ void dense_layer(
       }
     }
   }
-}
-
-// Shared memory of one eval-SA block: the input tile (rows x cin), reused
-// for the second hidden layer, the first hidden layer, and the pool row.
-__host__ __device__ inline size_t mlp_smem_floats(int rows, int cin, int c1, int c2, int c3) {
-  const int a = cin > c2 ? cin : c2;
-  return static_cast<size_t>(rows) * a + static_cast<size_t>(rows) * c1 + c3;
-}
-
-// Runs the three dense+ReLU layers and the max-pool on the tile already
-// loaded into smem[0 : rows*cin] (the caller synchronises after loading
-// it); leaves the pooled row in the returned pointer (shared memory, c3
-// floats). Ends with a block barrier.
-__device__ __forceinline__ float* mlp3_maxpool(
-    float* smem, int rows, int cin,
-    const float* __restrict__ w1, const float* __restrict__ b1, int c1,
-    const float* __restrict__ w2, const float* __restrict__ b2, int c2,
-    const float* __restrict__ w3, const float* __restrict__ b3, int c3) {
-  const int a = cin > c2 ? cin : c2;
-  float* x = smem;              // rows x cin, then rows x c2
-  float* h1 = smem + rows * a;  // rows x c1
-  float* pool = h1 + rows * c1; // c3
-  for (int c = threadIdx.x; c < c3; c += blockDim.x) pool[c] = 0.0f;
-  dense_layer<Epilogue::kStore>(x, rows, cin, w1, b1, nullptr, nullptr, c1, h1);
-  __syncthreads();
-  dense_layer<Epilogue::kStore>(h1, rows, c1, w2, b2, nullptr, nullptr, c2, x);
-  __syncthreads();
-  dense_layer<Epilogue::kMaxPool>(x, rows, c2, w3, b3, nullptr, nullptr, c3, pool);
-  __syncthreads();
-  return pool;
 }
 
 // Opts a kernel into more than the default 48 KB of dynamic shared memory.

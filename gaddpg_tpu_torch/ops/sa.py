@@ -8,7 +8,9 @@ level becomes gather -> 3x (Dense + ReLU) -> max-pool:
   JAX function handles one cloud and is vmapped, here the batch is the
   leading axis. The kernel computes only each group's distinct slots
   (`distinct_slots`), which give the same pooled max.
-- `mlp_maxpool` (K4, `csrc/mlp_maxpool.cu`): the group-all level.
+- `mlp_maxpool` (K4, `csrc/mlp_maxpool.cu`): the group-all level, on
+  wgmma in 3xTF32 with the weights split once per call (`tf32_split`,
+  `k4_weight_pack`).
 
 Weights are `((w1, b1), (w2, b2), (w3, b3))` with w_i of shape
 (C_{i-1}, C_i), the Flax kernel layout. A CPU tensor runs the plain
@@ -125,22 +127,76 @@ def check_tile_widths(name, weights):
             )
 
 
-def _check_kernel_layout(name, weights, rows, cin, c1, c2, c3):
-    """What the K4 kernel needs beyond the plain version: the tile fits
-    in shared memory, and every layer's w can be read as float4 rows
-    (width a multiple of 4, 16-byte aligned)."""
-    floats = rows * max(cin, c2) + rows * c1 + c3
-    if 4 * floats > build.MAX_SMEM_BYTES:
+# K4's tiles (csrc/mlp_maxpool.cu): 64 rows per consumer warpgroup, two
+# warpgroups per block, the weights streamed as k8 steps of 256-column
+# passes (a TF32 hi and lo part each) through K4_STAGES shared-memory stages
+K4_PASS = 256
+K4_HIDDEN = 256
+K4_MAX_IN = 288
+K4_STAGES = 5
+K4_BLOCK_ROWS = 128
+
+
+def _pad8(c):
+    return (c + 7) // 8 * 8
+
+
+def _check_kernel_layout(name, cin, c1, c2, c3):
+    """What the K4 kernel takes beyond the plain version: hidden widths
+    of 256, an output width that is a multiple of 256, and an input width
+    whose tile fits in shared memory (up to K4_MAX_IN). Raises ValueError
+    otherwise."""
+    if c1 != K4_HIDDEN or c2 != K4_HIDDEN or c3 % K4_PASS or not 1 <= cin <= K4_MAX_IN:
         raise ValueError(
-            f"{name}: a {rows}-row tile at widths {cin}->{c1}->{c2}->{c3} needs "
-            f"{4 * floats} bytes of shared memory, more than {build.MAX_SMEM_BYTES}"
+            f"{name}: the kernel takes widths C_in <= {K4_MAX_IN} -> {K4_HIDDEN} -> "
+            f"{K4_HIDDEN} -> a multiple of {K4_PASS}; got {cin} -> {c1} -> {c2} -> {c3}"
         )
+    stride = _pad8(max(cin, K4_HIDDEN)) + 4
+    smem = 4 * (K4_STAGES * 2 * K4_PASS * 8 + K4_BLOCK_ROWS * stride) + 16 * K4_STAGES
+    if smem > build.MAX_SMEM_BYTES:
+        raise ValueError(f"{name}: {smem} bytes of shared memory, more than "
+                         f"{build.MAX_SMEM_BYTES}")
+
+
+def tf32_split(x):
+    """(hi, lo) float32 tensors of TF32 values (low 13 mantissa bits
+    zero), each rounded to nearest, ties away from zero, as the card's
+    cvt.rna.tf32.f32 does, with hi + lo within 2^-22 |x| of x for
+    2^-115 <= |x| < 2^128 (1 - 2^-12), and within 2^-137 (half a TF32
+    step at the denormal scale) below. Zeros split into (x, 0) with x's
+    sign; +-inf and nan into (x, 0)."""
+    def rna(v):
+        bits = v.contiguous().view(torch.int32)
+        return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+    finite = torch.isfinite(x)
+    hi = torch.where(finite, rna(x), x)
+    lo = torch.where(finite, rna(x - hi), torch.zeros_like(x))
+    return hi, lo
+
+
+def k4_weight_pack(weights):
+    """The weight stream of the K4 kernel, (steps, 2, 2048) float32: for
+    each layer, each 256-column pass and each k8 step of the input width
+    (padded to a multiple of 8 with zero rows), the TF32 hi part and then
+    the lo part (`tf32_split`) of the (256 columns x 8 inputs) block of w,
+    in the order the kernel consumes them. A block is laid out K-major in
+    wgmma's core matrices: the step's two halves of 4 inputs, each (256,
+    4) row-major, i.e. block[h, c, q] = w[8 step + 4 h + q, 256 pass + c].
+    Raises ValueError on widths the kernel does not take
+    (`_check_kernel_layout`)."""
+    widths = [w.shape for w, _ in weights]
+    _check_kernel_layout("mlp_maxpool", widths[0][0], *(c for _, c in widths))
+    steps = []
     for w, _ in weights:
-        if w.shape[1] % 4 or w.data_ptr() % 16:
-            raise ValueError(
-                f"{name}: layer width {w.shape[1]} must be a multiple of 4 and its "
-                "weights 16-byte aligned"
-            )
+        cin, cout = w.shape
+        kpad = _pad8(cin)
+        wp = torch.nn.functional.pad(w, (0, 0, 0, kpad - cin))
+        # (step, half, q, pass, c) -> (pass, step, half, c, q)
+        steps.append(wp.reshape(kpad // 8, 2, 4, cout // K4_PASS, K4_PASS)
+                     .permute(3, 0, 1, 4, 2).reshape(-1, 8 * K4_PASS))
+    hi, lo = tf32_split(torch.cat(steps))
+    return torch.stack((hi, lo), dim=1)
 
 
 def sa_gather_mlp(group_idx, full, center_pad, weights):
@@ -186,7 +242,9 @@ def mlp_maxpool(full, weights):
     """Fused eval group-all SA: full (B, N, C_in) float32 -> 3x (folded
     Dense + ReLU) -> max over N -> (B, 1, C3).
 
-    CPU tensor: `mlp_maxpool_reference`. CUDA tensor: the K4 kernel."""
+    CPU tensor: `mlp_maxpool_reference`. CUDA tensor: the K4 kernel on
+    the weights split and laid out by `k4_weight_pack` (widths as
+    `_check_kernel_layout` states)."""
     if full.dtype != torch.float32 or full.dim() != 3:
         raise ValueError(f"mlp_maxpool: full {full.dtype} {tuple(full.shape)}")
     b, n, cin = full.shape
@@ -195,12 +253,11 @@ def mlp_maxpool(full, weights):
                               *(t for layer in weights for t in layer))
     if dev.type == "cpu":
         return mlp_maxpool_reference(full, weights)
-    _check_kernel_layout("mlp_maxpool", weights, n, cin, c1, c2, c3)
-    out = torch.empty((b, 1, c3), dtype=torch.float32, device=dev)
+    wpack = k4_weight_pack(weights)
+    out = torch.zeros((b, 1, c3), dtype=torch.float32, device=dev)
     build.launch(
-        "mlp_maxpool", dev, full.data_ptr(),
-        *(t.data_ptr() for layer in weights for t in layer),
-        out.data_ptr(), b, n, cin, c1, c2, c3,
+        "mlp_maxpool", dev, full.data_ptr(), wpack.data_ptr(),
+        *(bias.data_ptr() for _, bias in weights), out.data_ptr(), b, n, cin, c3,
     )
     mlp_maxpool.launches += 1
     return out

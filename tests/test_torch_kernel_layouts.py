@@ -1,0 +1,174 @@
+"""The layouts the K4 wrapper (ops/sa.py `mlp_maxpool`) builds for its
+wgmma kernel, checked on the CPU: the TF32 hi/lo split of the weights
+(`tf32_split`), the weight stream (`k4_weight_pack`) and the widths the
+kernel takes (`_check_kernel_layout`). The kernel itself runs only on the
+card (chip_smoke.py holds it against `mlp_maxpool_reference`); here a
+float64 walk over the stream in the kernel's order stands in for it.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from gaddpg_tpu_torch.ops import sa
+
+SA3 = (259, (256, 256, 512))
+
+
+def _weights(rng, cin, dims):
+    ws, c = [], cin
+    for d in dims:
+        ws.append((torch.from_numpy((rng.randn(c, d) * 0.3).astype(np.float32)),
+                   torch.from_numpy((rng.randn(d) * 0.1).astype(np.float32))))
+        c = d
+    return tuple(ws)
+
+
+def _low_bits(t):
+    return t.view(torch.int32) & 0x1FFF
+
+
+def test_tf32_split_reconstructs_fp32():
+    """hi and lo are TF32 (low 13 mantissa bits zero), hi is x rounded to
+    nearest, and hi + lo is x within 2^-22 relative, over x from 2^-115
+    (below it lo is denormal, and its step of 2^-136 bounds the error)
+    to 2^121."""
+    rng = np.random.RandomState(0)
+    mant = rng.uniform(1.0, 2.0, 20000)
+    expo = rng.randint(-115, 121, 20000)
+    sign = rng.choice([-1.0, 1.0], 20000)
+    x = torch.from_numpy((sign * mant * 2.0 ** expo).astype(np.float32))
+    hi, lo = sa.tf32_split(x)
+    assert not _low_bits(hi).any() and not _low_bits(lo).any()
+    xd, hid = x.double(), hi.double()
+    # hi is within half a TF32 step (2^-11 relative to the binade) of x
+    assert ((xd - hid).abs() <= 2.0 ** -11 * 2.0 ** torch.floor(torch.log2(xd.abs()))).all()
+    err = (hid + lo.double() - xd).abs()
+    assert (err <= 2.0 ** -22 * xd.abs()).all()
+
+
+def test_tf32_split_ties_round_away_from_zero():
+    """A value halfway between two TF32 values rounds away from zero, as
+    cvt.rna.tf32.f32 does on the card."""
+    x = torch.tensor([1.0 + 2.0 ** -11, -(1.0 + 2.0 ** -11), 1.0 + 3 * 2.0 ** -11],
+                     dtype=torch.float32)
+    hi, lo = sa.tf32_split(x)
+    assert hi.tolist() == [1.0 + 2.0 ** -10, -(1.0 + 2.0 ** -10), 1.0 + 2 * 2.0 ** -10]
+    assert (hi + lo == x).all()
+
+
+def test_tf32_split_zero_denormal_inf_nan():
+    """Zeros split into (x, 0) keeping the sign; a denormal into hi + lo
+    within 2^-137 of x; +-inf and nan into (x, 0)."""
+    zeros = torch.tensor([0.0, -0.0])
+    hi, lo = sa.tf32_split(zeros)
+    assert torch.equal(hi.view(torch.int32), zeros.view(torch.int32))
+    assert (lo == 0).all()
+    den = torch.tensor([1e-40, -3e-42, 2.0 ** -140, 1.1754942e-38], dtype=torch.float32)
+    assert (den.abs() < 2.0 ** -126).all()
+    hi, lo = sa.tf32_split(den)
+    assert not _low_bits(hi).any() and not _low_bits(lo).any()
+    assert ((hi.double() + lo.double() - den.double()).abs() <= 2.0 ** -137).all()
+    special = torch.tensor([float("inf"), float("-inf"), float("nan")])
+    hi, lo = sa.tf32_split(special)
+    assert hi[0] == float("inf") and hi[1] == float("-inf") and torch.isnan(hi[2])
+    assert (lo == 0).all()
+
+
+def test_k4_weight_pack_layout_at_sa3_widths():
+    """Every element of the stream sits where the kernel reads it: stage
+    (layer, pass, step), part hi/lo, then [half][column][input % 4]; the
+    rows past C_in = 259 (padding to 264) are zero."""
+    rng = np.random.RandomState(1)
+    cin, dims = SA3
+    weights = _weights(rng, cin, dims)
+    pack = sa.k4_weight_pack(weights)
+    steps = [264 // 8, 256 // 8, 2 * 256 // 8]  # layer 3: two passes of 32 steps
+    assert pack.shape == (sum(steps), 2, 2048) and pack.dtype == torch.float32
+    assert pack.is_contiguous()
+    stage = 0
+    for (w, _), n_steps in zip(weights, steps):
+        kin, cout = w.shape
+        wp = torch.zeros(-(-kin // 8) * 8, cout)
+        wp[:kin] = w
+        hi, lo = sa.tf32_split(wp)
+        per_pass = wp.shape[0] // 8
+        assert n_steps == per_pass * cout // 256
+        for p in range(cout // 256):
+            for step in range(per_pass):
+                got = pack[stage].view(2, 2, 256, 4)  # part, half, column, input % 4
+                block = lambda t: t[8 * step:8 * step + 8, 256 * p:256 * p + 256]
+                want = torch.stack([block(hi), block(lo)]).view(2, 2, 4, 256).transpose(2, 3)
+                assert torch.equal(got, want), (stage, p, step)
+                stage += 1
+    assert stage == pack.shape[0]
+    # layer 1's last step holds inputs 256..263: 259 (half 0, q 3) and
+    # the whole of half 1 are padding, zero in both parts
+    last = pack[steps[0] - 1].view(2, 2, 256, 4)
+    assert (last[:, 0, :, 3] == 0).all() and (last[:, 1] == 0).all()
+    assert (last[0, 0, :, :3] != 0).any()
+
+
+def _walk_stream(full, pack, weights):
+    """The kernel's arithmetic in float64 on the CPU: every layer from the
+    stream in the kernel's order, each product lo(x) hi(w) + hi(x) lo(w)
+    + hi(x) hi(w) with x split as the card splits it, then ReLU and the
+    max over each cloud's rows."""
+    b, n, cin = full.shape
+    x = full.reshape(b * n, cin)
+    stage = 0
+    for layer, (w, bias) in enumerate(weights):
+        kin, cout = -(-x.shape[1] // 8) * 8, w.shape[1]
+        xp = torch.nn.functional.pad(x, (0, kin - x.shape[1]))
+        xh, xl = (t.double() for t in sa.tf32_split(xp))
+        z = torch.zeros(b * n, cout, dtype=torch.float64)
+        for p in range(cout // 256):
+            for step in range(kin // 8):
+                blk = pack[stage].double().view(2, 2, 256, 4)
+                wh = blk[0].permute(0, 2, 1).reshape(8, 256)
+                wl = blk[1].permute(0, 2, 1).reshape(8, 256)
+                a_h, a_l = xh[:, 8 * step:8 * step + 8], xl[:, 8 * step:8 * step + 8]
+                z[:, 256 * p:256 * p + 256] += a_l @ wh + a_h @ wl + a_h @ wh
+                stage += 1
+        x = torch.relu(z + bias.double()).float()
+    assert stage == pack.shape[0]
+    return x.view(b, n, -1).amax(dim=1, keepdim=True)
+
+
+@pytest.mark.parametrize("b,n", [(3, 32), (1, 32), (2, 7)])
+def test_k4_stream_walk_matches_reference(b, n):
+    """Walking the stream as the kernel does gives the plain version's
+    output within 1e-4 (chip_smoke.py's bound for K4 against it): the
+    stream's order is the kernel's order and 3xTF32 keeps fp32 accuracy."""
+    rng = np.random.RandomState(2 + b)
+    cin, dims = SA3
+    weights = _weights(rng, cin, dims)
+    full = torch.from_numpy(rng.randn(b, n, cin).astype(np.float32))
+    got = _walk_stream(full, sa.k4_weight_pack(weights), weights)
+    want = sa.mlp_maxpool_reference(full, weights)
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("cin,dims", [
+    (11, (16, 16, 24)),        # tests/test_torch_sa.py's small K4 widths
+    (7, (64, 64, 128)),        # SA1 widths
+    (131, (128, 128, 256)),    # SA2 widths
+    (259, (256, 256, 384)),    # an output that is not a multiple of 256
+    (300, (256, 256, 512)),    # an input tile wider than shared memory holds
+])
+def test_k4_widths_the_kernel_does_not_take_raise(cin, dims):
+    """Widths the kernel cannot take raise in `_check_kernel_layout` (via
+    `k4_weight_pack`, on CPU tensors), while the wrapper still runs the
+    plain version on the CPU."""
+    weights = _weights(np.random.RandomState(3), cin, dims)
+    with pytest.raises(ValueError, match="mlp_maxpool"):
+        sa.k4_weight_pack(weights)
+    full = torch.zeros(1, 4, cin)
+    assert sa.mlp_maxpool(full, weights).shape == (1, 1, dims[-1])
+
+
+def test_k4_widths_the_kernel_takes():
+    """SA3's widths, and the narrowest and widest inputs, pass the check."""
+    for cin in (1, 259, sa.K4_MAX_IN):
+        sa._check_kernel_layout("mlp_maxpool", cin, 256, 256, 512)
+    sa._check_kernel_layout("mlp_maxpool", 259, 256, 256, 256)
