@@ -3,34 +3,34 @@
 what each step of a redesign buys, each package timed in its own process,
 in turns.
 
-    python3 ablate_sa_tiles.py [--parent DIR] [--variants NAME,...]
+    python3 ablate_sa_tiles.py [--parent DIR] [--variants NAME,...] [--no-k7]
 
 Writes variants of `gaddpg_tpu_torch` under build/ablate/ (copies of the
 package with one piece of a kernel swapped), then times each package in
 the order given, then in the reverse order. Variants (default: parent,
-k7_smem, k7_warps, final, k7_w2m1, k7_w4m1, k7_math2):
+final):
 
   parent       the package in DIR (an unpacked earlier commit), if given;
   k7_smem      K7 with the hand trajectory staged in shared memory, one
                warp per env, IEEE division and square root;
   k7_warps     and four warps per env (one per contact body, at most 64
                registers a thread);
+  k6_regload   this checkout with K6's layer engine loading its rows
+               through registers, four rows at a time (36 loads in flight
+               a lane), instead of by cp.async;
   final        this checkout: K7 with one warp per env, the trajectory in
                shared memory, division and square root without the IEEE
                slow path (csrc/contact_scan.cu `fdiv`, `fsqrt`); K4 on
-               wgmma in 3xTF32;
+               wgmma in 3xTF32; K6 one layer-engine launch per layer on
+               wgmma (csrc/groupall_layer.cu); K1 one warp per cloud;
   k7_w2m1      the final K7 with two warps per env (128 registers);
   k7_w4m1      the final K7 with four warps per env (64 registers);
   k7_math2     the final K7 with the approximate division and square
-               root alone (2 ulp);
-  compaction   K3/K5: distinct slots in 64-row tiles, the dense layers as
-               fp32 FMA on the CUDA cores, K5 recomputing layers 1..i-1 in
-               stats pass i and running K3 as its final forward;
-  no_recompute K3/K5: the same CUDA-core layers, K5 running each layer
-               once (z scratch) and pooling itself.
+               root alone (2 ulp).
 
-Each process prints one JSON line: K3 per level at B=1024 and K5 per
-policy level at B=256 on chip_smoke.py's synthetic clouds, K4 at B = 1,
+Each process prints one JSON line: K1 per level at B = 1, 256 and 1024,
+K3 per level at B=1024 and K5 and K6 per policy level at B=256 on
+chip_smoke.py's synthetic clouds, K4 at B = 1,
 256 and 1024 on the serving shapes' SA3 input, K7 at (B, n) = (1024, 75),
 (64, 75) and (1024, 200) on live rollout states (CUDA events,
 chip_smoke.cuda_ms; the largest difference from the plain version beside
@@ -38,11 +38,12 @@ each; for K7 also the envs off the JAX bounds, whether each is chaotic,
 their largest departures and those of one one-ulp nudge of the plain
 version, the largest ratio of the two rank by rank (chip_smoke.py's K7
 rule beyond 60 substeps), and a digest of the output, equal between
-variants that give the same bits), select_action at B=1024,
-the DDPG update at B=256 x 1030 (median of 3 after a warm-up) with its
-peak memory, and reset and retract_batched at B=1024 (median of 3 after a
-warm-up; host clock); with --quick K4 and K7 alone. Needs a card; the
-variants build their kernels into their own build/ directories.
+variants that give the same bits), select_action at B = 1 and 1024,
+the DDPG and BC updates at B=256 x 1030 (median of 3 after a warm-up)
+with the DDPG update's peak memory, and reset and retract_batched at
+B=1024 (median of 3 after a warm-up; host clock); with --quick K4 and K7
+alone, with --no-k7 no K7 and no env call. Needs a card; the variants
+build their kernels into their own build/ directories.
 
 The K7 variants are this checkout's csrc/contact_scan.cu with its
 division and square root swapped (K7_IEEE_MATH, K7_APPROX_MATH) or its
@@ -68,223 +69,14 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 OUT = ROOT / "build" / "ablate"
-DEFAULT_VARIANTS = ("parent", "k7_smem", "k7_warps", "final", "k7_w2m1", "k7_w4m1", "k7_math2")
+DEFAULT_VARIANTS = ("parent", "k6_regload", "final")
 K7_SHAPES = ((1024, 75), (64, 75), (1024, 200))
-
-# the dense layer on the CUDA cores: the tensor-core version's weight
-# staging, tile and accumulator layout, one fp32 FMA per product
-FMA_DENSE = r'''
-__device__ __forceinline__ void dense_tf32x3(const float* act, int cin,
-                                             const float* __restrict__ w, int cout,
-                                             float* wbuf, TileAcc& acc) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int wr = warp >> 2, wc = warp & 3;
-  const int g = lane >> 2, t = lane & 3;
-  const int ntiles = cout >> 3;
-  const int ws = weight_stride(cout);
-  const int as = act_stride(cin);
-  const int kin = pad8(cin);
-  const int chunks = (kin + kWeightChunk - 1) / kWeightChunk;
-#pragma unroll
-  for (int m = 0; m < 2; ++m)
-#pragma unroll
-    for (int j = 0; j < kWarpTiles; ++j)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) acc[m][j][i] = 0.0f;
-  __syncthreads();
-  stage_weights(w, cin, cout, 0, wbuf);
-  for (int ch = 0; ch < chunks; ++ch) {
-    if (ch + 1 < chunks) {
-      stage_weights(w, cin, cout, ch + 1, wbuf + ((ch + 1) & 1) * kWeightChunk * ws);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const float* wb = wbuf + (ch & 1) * kWeightChunk * ws;
-#pragma unroll 4
-    for (int kk = 0; kk < kWeightChunk; ++kk) {
-      const int k = ch * kWeightChunk + kk;
-      if (k < kin) {
-        float a[2][2];
-#pragma unroll
-        for (int m = 0; m < 2; ++m) {
-          a[m][0] = act[(wr * 32 + 16 * m + g) * as + k];
-          a[m][1] = act[(wr * 32 + 16 * m + g + 8) * as + k];
-        }
-#pragma unroll
-        for (int j = 0; j < kWarpTiles; ++j) {
-          if (4 * j + wc < ntiles) {
-            const float2 bv =
-                *reinterpret_cast<const float2*>(wb + kk * ws + 8 * (4 * j + wc) + 2 * t);
-#pragma unroll
-            for (int m = 0; m < 2; ++m) {
-              acc[m][j][0] = fmaf(a[m][0], bv.x, acc[m][j][0]);
-              acc[m][j][1] = fmaf(a[m][0], bv.y, acc[m][j][1]);
-              acc[m][j][2] = fmaf(a[m][1], bv.x, acc[m][j][2]);
-              acc[m][j][3] = fmaf(a[m][1], bv.y, acc[m][j][3]);
-            }
-          }
-        }
-      }
-    }
-    __syncthreads();
-  }
-}
-
-'''
-
-# K5 stats pass `upto` that gathers its rows and recomputes layers
-# 1..upto-1 with the earlier passes' BatchNorm affines
-RECOMPUTE_KERNEL = r'''
-struct Mlp3 {
-  const float* w[3];
-  const float* b[3];
-  const float* a[2];
-  const float* c[2];
-  int width[4];
-};
-
-__global__ void __launch_bounds__(kTileThreads, 2) sa_train_recompute_kernel(
-    RowList list, int groups, const float* __restrict__ full, const float* __restrict__ cpad,
-    Mlp3 p, float* __restrict__ partial, int s, int n, int upto, int widest, int widest_act) {
-  extern __shared__ float4 smem4[];
-  const TileSmem t = tile_smem(reinterpret_cast<float*>(smem4), widest, widest_act);
-  const int total = list.start[groups];
-  const int tiles = (total + kRowTile - 1) / kRowTile;
-  const int cout = p.width[upto];
-  const int as_out = act_stride(cout);
-  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
-    const int row0 = tile * kRowTile;
-    const int rows = min(kRowTile, total - row0);
-    __syncthreads();
-    load_rows(list, row0, rows, t);
-    gather_tile(rows, full, cpad, s, n, p.width[0], t);
-    TileAcc acc;
-    for (int l = 0; l + 1 < upto; ++l) {
-      const int c = p.width[l + 1];
-      dense_tf32x3(t.act, p.width[l], p.w[l], c, t.wbuf, acc);
-      store_tile(acc, p.b[l], c, false, t.act);
-      __syncthreads();
-      const int as = act_stride(c);
-      for (int e = threadIdx.x; e < kRowTile * c; e += blockDim.x) {
-        const int r = e / c, j = e - r * c;
-        float* v = t.act + r * as + j;
-        *v = fmaxf(__fadd_rn(__fmul_rn(*v, p.a[l][j]), p.c[l][j]), 0.0f);
-      }
-    }
-    dense_tf32x3(t.act, p.width[upto - 1], p.w[upto - 1], cout, t.wbuf, acc);
-    store_tile(acc, p.b[upto - 1], cout, false, t.act);
-    __syncthreads();
-    float* part = partial + static_cast<size_t>(tile) * 2 * cout;
-    for (int col = threadIdx.x; col < cout; col += blockDim.x) {
-      float sum = 0.0f, sq = 0.0f;
-      for (int r = 0; r < rows; ++r) {
-        const float z = t.act[r * as_out + col];
-        const float mz = static_cast<float>(t.mult[r]) * z;
-        sum += mz;
-        sq = fmaf(mz, z, sq);
-      }
-      part[col] = sum;
-      part[cout + col] = sq;
-    }
-  }
-}
-
-}  // namespace
-
-extern "C" int gaddpg_sa_train_recompute(
-    const void* idx, const void* full, const void* cpad, const void* w1, const void* b1,
-    const void* a1, const void* c1, const void* w2, const void* b2, const void* a2,
-    const void* c2, const void* w3, const void* b3, void* partial, void* rows, void* mean,
-    void* var, int batch, int s, int k, int n, int cin, int d1, int d2, int d3, int upto,
-    void* stream) {
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int groups = batch * s;
-  const RowList list = row_list(rows, groups, k);
-  cudaError_t err = compact_groups(static_cast<const int*>(idx), groups, k, list, st);
-  if (err != cudaSuccess) return err;
-  Mlp3 p;
-  const void* w[3] = {w1, w2, w3};
-  const void* b[3] = {b1, b2, b3};
-  for (int l = 0; l < 3; ++l) {
-    p.w[l] = static_cast<const float*>(w[l]);
-    p.b[l] = static_cast<const float*>(b[l]);
-  }
-  p.a[0] = static_cast<const float*>(a1);
-  p.a[1] = static_cast<const float*>(a2);
-  p.c[0] = static_cast<const float*>(c1);
-  p.c[1] = static_cast<const float*>(c2);
-  p.width[0] = cin;
-  p.width[1] = d1;
-  p.width[2] = d2;
-  p.width[3] = d3;
-  int widest = d1;
-  for (int l = 2; l <= upto; ++l) widest = std::max(widest, p.width[l]);
-  const int widest_act = std::max(cin, widest);
-  const size_t smem = tile_smem_bytes(widest, widest_act);
-  int grid = 0;
-  err = tile_grid(sa_train_recompute_kernel, smem, groups * k, &grid);
-  if (err != cudaSuccess) return err;
-  sa_train_recompute_kernel<<<grid, kTileThreads, smem, st>>>(
-      list, groups, static_cast<const float*>(full), static_cast<const float*>(cpad), p,
-      static_cast<float*>(partial), s, n, upto, widest, widest_act);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  return launch_reduce_stats(static_cast<const float*>(partial), 0, list.start + groups,
-                             kRowTile, p.width[upto], static_cast<double>(groups) * k,
-                             static_cast<float*>(mean), static_cast<float*>(var), st);
-}
-
-namespace {
-'''
-
-# K5's wrapper for the recomputing passes: three stats passes, then K3
-RECOMPUTE_WRAPPER = '''def _sa_train_kernels(group_idx, full, cpad, dense):
-    from gaddpg_tpu_torch.ops.sa import sa_gather_mlp
-    b, s, k = group_idx.shape
-    n, cin = full.shape[1:]
-    dev = full.device
-    widths = [cin] + [w.shape[1] for w, _, _, _ in dense]
-    rows = torch.empty(row_list_ints(b * s, k), dtype=torch.int32, device=dev)
-    tiles = -(-(b * s * k) // ROW_TILE)
-    stats, affine = [], []
-    for upto in (1, 2, 3):
-        cout = widths[upto]
-        partial = torch.empty((tiles, 2, cout), dtype=torch.float32, device=dev)
-        mean = torch.empty(cout, dtype=torch.float32, device=dev)
-        var = torch.empty(cout, dtype=torch.float32, device=dev)
-        ptrs = []
-        for i, (w, w_bias, _, _) in enumerate(dense):
-            ptrs += [w.data_ptr(), w_bias.data_ptr()]
-            if i < 2:
-                a, c = affine[i] if i < upto - 1 else (None, None)
-                ptrs += [0 if a is None else a.data_ptr(), 0 if c is None else c.data_ptr()]
-        build.launch("sa_train_recompute", dev, group_idx.data_ptr(), full.data_ptr(),
-                     cpad.data_ptr(), *ptrs, partial.data_ptr(), rows.data_ptr(),
-                     mean.data_ptr(), var.data_ptr(), b, s, k, n, cin, *widths[1:], upto)
-        _, _, scale, bias = dense[upto - 1]
-        affine.append(bn_affine(mean, var, scale, bias))
-        stats.append((mean, var))
-    sa_train_fused.launches += 1
-    return sa_gather_mlp(group_idx, full, cpad, _folded(dense, affine)), tuple(stats)
-
-
-'''
-
 
 def _replace(path, old, new):
     text = path.read_text()
     if text.count(old) != 1:
         raise RuntimeError(f"{path}: the text to swap is not there once")
     path.write_text(text.replace(old, new))
-
-
-def _between(path, start, end, new):
-    """Replace path's text from the line starting `start` up to `end`."""
-    text = path.read_text()
-    i0, i1 = text.index(start), text.index(end)
-    path.write_text(text[:i0] + new + text[i1:])
 
 
 # K7's division and square root (csrc/contact_scan.cu `fdiv`, `fsqrt`):
@@ -395,6 +187,44 @@ def k7_env_warps(text, warps):
     return re.sub(r"\bi ([=!]=) (\d)\b", r"(grp.warp * kPerThread + i) \1 \2", text)
 
 
+# K6's row load through registers (csrc/groupall_layer.cu `load_chunk`)
+K6_REGLOAD = r"""constexpr int kLaneCols = (kChunk + 31) / 32;  // columns of a chunk row a lane loads
+constexpr int kLoadRows = 4;  // rows a warp loads at a time
+
+__device__ __forceinline__ void load_chunk(const LayerArgs& p, int row0, int k0, int kw,
+                                           float* dst, int lane) {
+  for (int r0 = 0; r0 < 16; r0 += kLoadRows) {
+    float v[kLoadRows][kLaneCols];
+#pragma unroll
+    for (int r = 0; r < kLoadRows; ++r) {
+      const bool row_in = row0 + r0 + r < p.rows;
+      const float* src = p.x + static_cast<size_t>(row0 + r0 + r) * p.cin;
+#pragma unroll
+      for (int u = 0; u < kLaneCols; ++u) {
+        const int j = lane + 32 * u, k = k0 + j;
+        v[r][u] = 0.0f;
+        if (row_in && j < kw && k < p.cin) {
+          const float x = __ldg(src + k);
+          v[r][u] = !p.relu          ? x
+                    : p.a == nullptr ? fmaxf(x, 0.0f)
+                                     : fmaxf(__fadd_rn(__fmul_rn(x, __ldg(p.a + k)),
+                                                       __ldg(p.c + k)), 0.0f);
+        }
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < kLoadRows; ++r) {
+#pragma unroll
+      for (int u = 0; u < kLaneCols; ++u) {
+        const int j = lane + 32 * u;
+        if (j < kw) dst[(r0 + r) * kActStride + j] = v[r][u];
+      }
+    }
+  }
+}
+
+"""
+
 # (warps per env, division and square root) of each K7 variant
 K7_VARIANTS = {
     "k7_smem": (1, K7_IEEE_MATH),
@@ -423,25 +253,14 @@ def write_variants(names):
             if warps > 1:
                 src.write_text(k7_env_warps(src.read_text(), warps))
             dirs[name] = pkg.parent
-    for name in ("no_recompute", "compaction"):
-        if name not in names:
-            continue
-        pkg = _copy_package(name)
-        tile = pkg / "ops" / "csrc" / "sa_tile.cuh"
-        _between(tile, "__device__ __forceinline__ void dense_tf32x3(",
-                 "// act (kRowTile x cout, stride act_stride(cout)) = acc + b", FMA_DENSE)
-        dirs[name] = pkg.parent
-    if "compaction" not in dirs:
-        return dirs
-    pkg = dirs["compaction"] / "gaddpg_tpu_torch"
-    _replace(pkg / "ops" / "csrc" / "sa_train_stats.cu",
-             "}  // namespace\n\n// K5 pass `layer`", RECOMPUTE_KERNEL + "}  // namespace\n\n// K5 pass `layer`")
-    _replace(pkg / "ops" / "build.py", '    "contact_scan": ("contact_scan",',
-             '    "sa_train_recompute": ("sa_train_stats", "gaddpg_sa_train_recompute",\n'
-             '                           (_P,) * 17 + (_I,) * 9 + (_P,)),\n'
-             '    "contact_scan": ("contact_scan",')
-    _between(pkg / "ops" / "sa_train.py", "def _sa_train_kernels(",
-             "def _groupall_train_kernels(", RECOMPUTE_WRAPPER)
+    if "k6_regload" in names:
+        pkg = _copy_package("k6_regload")
+        src = pkg / "ops" / "csrc" / "groupall_layer.cu"
+        text = src.read_text()
+        start = text.index("// 4 bytes from global to shared memory by cp.async")
+        end = text.index("__global__ void __launch_bounds__(kThreads, 1) groupall_layer_kernel(")
+        src.write_text(text[:start] + K6_REGLOAD + text[end:])
+        dirs["k6_regload"] = pkg.parent
     return dirs
 
 
@@ -452,14 +271,14 @@ def _distinct(idx):
     return kept.item() / idx.numel()
 
 
-def measure(tag, quick=False):
+def measure(tag, quick=False, k7=True):
     """One package's numbers (the one first on sys.path) as a dict; with
-    `quick` K4 and K7 alone."""
+    `quick` K4 and K7 alone, without `k7` no K7 and no env call."""
     import torch
 
     import chip_smoke as cs
     import gaddpg_tpu_torch
-    from gaddpg_tpu_torch.agents import make_ddpg_update, make_select_action
+    from gaddpg_tpu_torch.agents import make_bc_update, make_ddpg_update, make_select_action
 
     torch.manual_seed(0)
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -469,6 +288,14 @@ def measure(tag, quick=False):
         if quick:
             measure_k4_k7(sm, gen, out, env_calls=False)
             return out
+        for batch in (1, 256, 1024):
+            fps_ps = cs.synthetic_point_state(batch, gen, sm.hand_points, sm.device)
+            for label, args in sm.level_inputs(fps_ps)["fps"]:
+                same = torch.equal(sm.sampling.furthest_point_sampling(*args),
+                                   sm.sampling.fps_reference(*args))
+                out[f"K1 {label} B={batch}"] = {
+                    "ms": cs.cuda_ms(lambda: sm.sampling.furthest_point_sampling(*args)),
+                    "indices_equal": same}
         ps = cs.synthetic_point_state(1024, gen, sm.hand_points, sm.device)
         for label, args in sm.level_inputs(ps)["sa_gather_mlp"]:
             err = (sm.sa.sa_gather_mlp(*args) - sm.sa.sa_gather_mlp_reference(*args)).abs().max()
@@ -477,38 +304,54 @@ def measure(tag, quick=False):
                 "distinct": _distinct(args[0]),
                 "max_abs_err": err.item()}
         for label, kernel, args in sm.train_calls(256, gen):
-            if kernel != "sa_train" or not label.startswith("policy"):
-                continue
-            got = sm.sa_train.sa_train_fused(*args)[0]
-            err = (got - sm.sa_train.sa_train_reference(*args)[0]).abs().max()
-            out[f"K5 {label} B=256"] = {
-                "ms": cs.cuda_ms(lambda: sm.sa_train.sa_train_fused(*args), reps=5, rounds=5),
-                "distinct": _distinct(args[0]),
-                "max_abs_err": err.item()}
+            if kernel == "sa_train" and label.startswith("policy"):
+                got = sm.sa_train.sa_train_fused(*args)[0]
+                err = (got - sm.sa_train.sa_train_reference(*args)[0]).abs().max()
+                out[f"K5 {label} B=256"] = {
+                    "ms": cs.cuda_ms(lambda: sm.sa_train.sa_train_fused(*args), reps=5, rounds=5),
+                    "distinct": _distinct(args[0]),
+                    "max_abs_err": err.item()}
+            elif kernel == "groupall_train" and label.startswith("policy"):
+                got, stats = sm.sa_train.groupall_train_fused(*args)
+                want, want_stats = sm.sa_train.groupall_train_reference(*args)
+                err = max((a - b).abs().max().item() for a, b in
+                          zip((got, *(t for mv in stats for t in mv)),
+                              (want, *(t for mv in want_stats for t in mv))))
+                out[f"K6 {label} B=256"] = {
+                    "ms": cs.cuda_ms(lambda: sm.sa_train.groupall_train_fused(*args),
+                                     reps=5, rounds=5),
+                    "max_abs_err": err}
         select = make_select_action(sm.cfg)
-        remain = torch.full((1024,), 10.0, device=sm.device)
-        out["select_action B=1024 ms"] = cs.host_ms(lambda: select(sm.state, ps, remain), reps=10)
-    ddpg = make_ddpg_update(sm.cfg)
+        for batch in (1, 1024):
+            sel_ps = ps[:batch]
+            remain = torch.full((batch,), 10.0, device=sm.device)
+            out[f"select_action B={batch} ms"] = cs.host_ms(
+                lambda: select(sm.state, sel_ps, remain), reps=10)
     batch = sm.learner_batch(cs.TRAIN_BATCH, gen)
-    times = []
     torch.cuda.reset_peak_memory_stats()
-    for i in range(1 + cs.TIMED_UPDATES):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        ddpg(sm.train_state, batch, gen)
-        torch.cuda.synchronize()
-        if i:
-            times.append((time.perf_counter() - t0) * 1e3)
-    out["ddpg update ms"] = statistics.median(times)
-    out["ddpg peak GiB"] = torch.cuda.max_memory_allocated() / 2**30
+    for name, update in (("ddpg", make_ddpg_update(sm.cfg)), ("bc", make_bc_update(sm.cfg))):
+        times = []
+        for i in range(1 + cs.TIMED_UPDATES):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if name == "ddpg":
+                update(sm.train_state, batch, gen)
+            else:
+                update(sm.train_state, batch)
+            torch.cuda.synchronize()
+            if i:
+                times.append((time.perf_counter() - t0) * 1e3)
+        out[f"{name} update ms"] = statistics.median(times)
+        if name == "ddpg":
+            out["ddpg peak GiB"] = torch.cuda.max_memory_allocated() / 2**30
     with torch.no_grad():
-        measure_k4_k7(sm, gen, out)
+        measure_k4_k7(sm, gen, out, k7=k7)
     return out
 
 
-def measure_k4_k7(sm, gen, out, env_calls=True):
-    """K4 at B = 1, 256, 1024, K7 at K7_SHAPES and, with `env_calls`, the
-    env's reset and retract at B=1024 into `out`."""
+def measure_k4_k7(sm, gen, out, env_calls=True, k7=True):
+    """K4 at B = 1, 256, 1024, and with `k7` K7 at K7_SHAPES and, with
+    `env_calls`, the env's reset and retract at B=1024 into `out`."""
     import torch
 
     import chip_smoke as cs
@@ -521,6 +364,8 @@ def measure_k4_k7(sm, gen, out, env_calls=True):
         err = (sm.sa.mlp_maxpool(*args) - sm.sa.mlp_maxpool_reference(*args)).abs().max()
         out[f"K4 B={batch}"] = {"ms": cs.cuda_ms(lambda: sm.sa.mlp_maxpool(*args)),
                                 "max_abs_err": err.item()}
+    if not k7:
+        return
     env = PandaGraspEnv(EnvParams(use_planner=False), library_from_index("ycb", "train"))
     env_gen = torch.Generator(device="cuda").manual_seed(7)
     live = sm.rollout_states(env, env_gen)
@@ -583,6 +428,7 @@ def main() -> int:
     ap.add_argument("--variants", default=",".join(DEFAULT_VARIANTS),
                     help="comma-separated variants, in the order to time them")
     ap.add_argument("--quick", action="store_true", help="time K4 and K7 alone")
+    ap.add_argument("--no-k7", action="store_true", help="time no K7 and no env call")
     ap.add_argument("--measure", help=argparse.SUPPRESS)  # one variant, in a child process
     args = ap.parse_args()
     if args.measure:
@@ -593,7 +439,7 @@ def main() -> int:
         spec = importlib.util.spec_from_file_location("chip_smoke", ROOT / "chip_smoke.py")
         sys.modules["chip_smoke"] = importlib.util.module_from_spec(spec)
         spec.loader.exec_module(sys.modules["chip_smoke"])
-        print(json.dumps(measure(args.measure, args.quick)), flush=True)
+        print(json.dumps(measure(args.measure, args.quick, not args.no_k7)), flush=True)
         return 0
     import torch
 
@@ -610,7 +456,8 @@ def main() -> int:
     for tag in order + order[::-1]:
         env = dict(os.environ, PYTHONPATH=os.pathsep.join([str(dirs[tag]), str(ROOT)]))
         run = subprocess.run([sys.executable, __file__, "--measure", tag]
-                             + ["--quick"] * args.quick, cwd=ROOT, env=env,
+                             + ["--quick"] * args.quick + ["--no-k7"] * args.no_k7,
+                             cwd=ROOT, env=env,
                              capture_output=True, text=True)
         if run.returncode:
             print(run.stdout + run.stderr, file=sys.stderr)

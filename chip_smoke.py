@@ -6,26 +6,34 @@
 Phases, each of which must pass:
   1. build the CUDA kernels of K1 FPS, K2 ball query, K3 eval SA
      gather+MLP, K4 eval group-all SA and the train SA levels K5 and K6
-     (one source) from gaddpg_tpu_torch/ops/csrc;
+     from gaddpg_tpu_torch/ops/csrc;
   2. hold each kernel against its plain PyTorch version on the card,
-     batches 8 and 256: K1-K4 at the serving shapes (indices exactly
-     equal, floats within rtol = atol = 1e-4: fp32, different summation
-     order); K5/K6 (`sa_train_fused`, `groupall_train_fused`) at the
+     batches 8 and 256, at the widths of model_scale 1 and 2 (SA2 259 ->
+     256 -> 256 -> 512 and SA3 515 -> 512 -> 512 -> 1024 at scale 2): K1-K4
+     at the serving shapes (indices exactly equal, floats within rtol =
+     atol = 1e-4: fp32, different summation order); K1 also on tie-heavy
+     clouds (a cloud of 8 points repeated, an integer grid; B = 1, 256,
+     1024, N = 1024, 1031, 32, 33) and synthetic clouds at B = 1, 256,
+     1024, its SA2 call on each cloud's SA1 centres, and (phase 9) on the
+     env's clouds; K5/K6 (`sa_train_fused`, `groupall_train_fused`) at the
      learner's shapes (policy SA1, value SA1, SA2, SA3): pooled output and
      batch statistics within 1e-4, the gradient of sum(pooled^2) through
      the wrapper within 1e-3 of each leaf's largest (the Dense biases,
      whose exact gradient is 0 under a batch-stat BatchNorm, within 1e-3
      of the call's largest gradient of 0 on both sides), and two calls
-     giving bit-identical statistics; then K3 and K5 at B=8, SA1 and SA2,
+     giving bit-identical pooled outputs and statistics; then K3 and K5
+     at B=8, SA1 and SA2,
      on groups that stress their compaction to distinct slots (every slot
      computed, every slot padded, the ball query's K > N padding,
      out-of-range indices, repeats that differ from slot 0) against the
      plain versions on the zero-row form of the same inputs, at the same
      bounds (K5's gradients where the indices lie in [0, N)), two calls
-     bit-identical; and K4 (wgmma, 3xTF32) within 1e-4 at B = 1, 3, 256
-     and 1024 (partial and ragged 128-row tiles), on a batch whose last
-     layer's pre-activations are all negative, and at the shape of K6's
-     final forward, two calls bit-identical;
+     bit-identical; and K4 within 1e-4 at B = 1, 3, 256 and 1024 (partial
+     and ragged 128-row tiles) on both branches of its width test (the
+     fused wgmma kernel at scale 1, K6's layer engine at scale 2), on a
+     batch whose last layer's pre-activations are all negative, two
+     calls bit-identical, and the weight-pack kernel of K4 and K6 equal
+     bit for bit to its plain version (`layer_weight_pack_reference`);
   3. drive the serving path, `make_select_action` on a full-width agent
      state from a seeded generator, at batch 1, 8 and 1024, with the
      launch counters set to 0 just before and read just after (each call
@@ -43,21 +51,21 @@ Phases, each of which must pass:
      full-width agent state at batch 256 x 1030 points (bench.py's
      batch), one warm-up and three timed updates each, the counters set
      to 0 before and read after every update (a DDPG update runs five
-     train-mode encoder forwards: K1 10x, K2 10x, K5 10x, K6 5x, with
-     K6's final forwards K4 5x; K5 pools itself; a BC update a fifth of
-     that),
+     train-mode encoder forwards: K1 10x, K2 10x, K5 10x, K6 5x and no
+     K4: K5 and K6 pool themselves; a BC update a fifth of that),
      every metric finite; two DDPG updates at batch 8 on the card and on
      the CPU from the same state (with carried Adam moments; the second
      from the CPU's state after the first), a batch whose actor term is
      live, and the same smoothing draws: metrics of both updates within
      1e-3, and after the first the running
      statistics, every parameter's and target's move (the bounds of
-     tests/test_torch_learner.py) and the update step; update times (host
-     clock), device busy time, idle share
-     and where the device time goes (torch.profiler), peak memory, and
-     K5/K6 per level against their plain versions and bounds, with K5's
-     distinct-row share, on synthetic clouds and on
-     bench.py's learner batch;
+     tests/test_torch_learner.py) and the update step; update times
+     (host clock), device busy
+     time, idle share and where the device time goes (torch.profiler; no
+     K4 kernel may appear), peak memory, and K5/K6 per level against
+     their plain versions and bounds, with K5's distinct-row share, on
+     synthetic clouds and on bench.py's learner batch, and K3-K6 at the
+     scale 2 widths;
   7. hold K7 (the contact scan) against its plain version on the card
      over 60 substeps at batch 8 and over 75, 150 and 200 substeps at
      batch 64 and 1024, on contact-rich states (objects
@@ -110,7 +118,11 @@ Phases, each of which must pass:
      reservoir, tests/test_torch_env.py), and equal lift outcomes. An env
      whose object is off the bounds must be chaotic as in phase 7: the
      CPU path, with its object position nudged by one ulp, moves at least
-     a quarter as far; such an env's view is not compared.
+     a quarter as far; such an env's view is not compared;
+ 10. the model_scale 2 agent card vs CPU: `select_action` at B=8 (the
+     launches of one call as at scale 1, K4 on its layer engine) within
+     1e-3, and one B=8 DDPG update from a common state within phase 6's
+     bounds.
 
 Prints the card's name and power limit (nvidia-smi), then one JSON line
 with every kernel's numbers (launches: K1-K4 over the phase-3 calls, K5/K6
@@ -156,18 +168,25 @@ REPLACES = {
     "groupall_train": "gaddpg_tpu/ops/pallas_sa_train.py:443",
     "contact_scan": "gaddpg_tpu/ops/pallas_physics.py:425",
 }
-SOURCES = {"sa_train": "sa_train_stats", "groupall_train": "sa_train_stats"}
+SOURCES = {"sa_train": "sa_train_stats", "groupall_train": "groupall_layer"}
 PER_CALL = {"fps": 2, "ball_query": 2, "sa_gather_mlp": 2, "mlp_maxpool": 1,
             "sa_train": 0, "groupall_train": 0, "contact_scan": 0}
 # launches of one update: five train-mode encoder forwards (DDPG), one (BC);
-# K5 pools itself, K6's final forward is K4
-DDPG_PER_UPDATE = {"fps": 10, "ball_query": 10, "sa_gather_mlp": 0, "mlp_maxpool": 5,
+# K5 and K6 pool themselves: no K4
+DDPG_PER_UPDATE = {"fps": 10, "ball_query": 10, "sa_gather_mlp": 0, "mlp_maxpool": 0,
                    "sa_train": 10, "groupall_train": 5, "contact_scan": 0}
 BC_PER_UPDATE = {k: v // 5 for k, v in DDPG_PER_UPDATE.items()}
 TRAIN_BATCH, TRAIN_POINTS = 256, 1030  # bench.py's learner envelope
 TIMED_UPDATES = 3
 CHECK_BATCHES = (8, 256)      # kernels against their plain versions
 K4_BATCHES = (1, 3, 256, 1024)  # K4 on one, partial and full 128-row tiles
+SCALE2_FEATURE = 1024         # AgentConfig.feature_dim of a model_scale 2 agent
+# the scale 2 card-vs-CPU update: one batch per seed, each from a
+# generator of its own, so the batches do not depend on the phases before
+SCALE2_SEEDS = tuple(range(8))
+SCALE2_SELECT_SEED = 100
+# K1 on tie-heavy clouds: (B, N), N = 1024 the SA1 cloud, 32 the SA2 one
+FPS_TIE_SHAPES = ((1, 1024), (256, 1024), (1024, 1024), (1024, 32), (256, 1031), (8, 33))
 MAIN_BATCHES = (1, 8, 1024)   # one robot, entry(), bench.py's env count
 TIME_BATCHES = (1, 1024)      # kernel timings; the JSON line sums the last
 ENV_BATCH = 1024              # bench.py's env count
@@ -223,6 +242,33 @@ def card_line() -> str:
         capture_output=True, text=True, timeout=60, check=True,
     )
     return out.stdout.strip().splitlines()[0]
+
+
+def _cpu(batch):
+    return {k: v.cpu() for k, v in batch.items()}
+
+
+def _learner_modules(state):
+    return {"policy": state.policy, "encoder": state.feat.encoder, "critic": state.critic,
+            "value_encoder": state.feat.value_encoder,
+            "critic_target": state.critic_target, "policy_target": state.policy_target}
+
+
+def _move_bounds(cfg):
+    """group -> (lr, threshold in lr, share of the group's elements whose
+    two moves may differ by more): tests/test_torch_learner.py's bounds of
+    one update with the actor term on."""
+    return {"policy": (cfg.lr, 0.5, 2e-2), "encoder": (cfg.feature_lr, 0.5, 2e-2),
+            "critic": (cfg.value_lr, 0.1, 1e-3), "value_encoder": (cfg.feature_lr, 0.1, 2e-3),
+            "critic_target": (cfg.value_lr, 0.1, 1e-3),
+            "policy_target": (cfg.lr, 2.5e-4, 1e-3)}
+
+
+def _bn_fed_bias(group, name):
+    """Whether `name` is a Dense bias that feeds a BatchNorm (its gradient
+    is 0 up to rounding)."""
+    return group.endswith("encoder") and name.endswith(".bias") and (
+        ".dense." in name or name.startswith("fc."))
 
 
 def synthetic_point_state(batch, gen, hand_points, device):
@@ -397,10 +443,7 @@ def train_work(kernel, args):
     written once, and each of the three Dense layers once per row: for a
     grouped level (K5), once per distinct slot of each group, the rows
     that give the pooled max and the batch sums. The group-all level (K6)
-    has no padding: every row counts. (K6
-    recomputes layers 1..i-1 in its stats pass i and runs the layers
-    again in its final forward: a property of its design, which the bound
-    does not credit.)"""
+    has no padding: every row counts."""
     f32 = 4
     dense = args[-1]
     widths = [w.shape for w, _, _, _ in dense]
@@ -527,6 +570,21 @@ class Smoke:
         self.device = self.state.device
         self.errors = {k: 0.0 for k in self.wrappers}
         self.launches = {}
+        self._scale2 = None
+
+    def scale2(self):
+        """(config, serving state, learner state) of a model_scale 2 agent
+        (SA widths doubled: SA2 259 -> 256 -> 256 -> 512, SA3 515 -> 512 ->
+        512 -> 1024), made at first use from seeded generators."""
+        if self._scale2 is None:
+            from gaddpg_tpu_torch.agents import AgentConfig, create_agent_state
+
+            cfg = AgentConfig(feature_dim=SCALE2_FEATURE)
+            self._scale2 = (cfg,
+                            create_agent_state(cfg, generator=torch.Generator().manual_seed(3)),
+                            create_agent_state(cfg, TRAIN_POINTS,
+                                               generator=torch.Generator().manual_seed(4)))
+        return self._scale2
 
     def counts(self):
         return {k: w.launches for k, w in self.wrappers.items()}
@@ -536,11 +594,12 @@ class Smoke:
             w.launches = 0
 
     # -- the serving shapes, level by level ---------------------------------
-    def level_inputs(self, point_state):
-        """Per-kernel inputs of one policy-encoder forward, computed with
-        the plain versions: {kernel: [(label, args), ...]}."""
+    def level_inputs(self, point_state, state=None):
+        """Per-kernel inputs of one policy-encoder forward of `state`
+        (default: the serving state), computed with the plain versions:
+        {kernel: [(label, args), ...]}."""
         sampling, sa = self.sampling, self.sa
-        enc = self.state.feat.encoder
+        enc = (state or self.state).feat.encoder
         pc = point_state[:, :4, 6:].transpose(1, 2)
         xyz, feats = pc[..., :3].contiguous(), pc
         calls = {k: [] for k in self.serving}
@@ -569,55 +628,95 @@ class Smoke:
 
     # -- phase 2 --------------------------------------------------------------
     def check_kernels(self, gen):
+        """K1-K4 at the serving shapes of the scale 1 and scale 2 agents."""
+        scaled = (("", self.state), ("scale 2 ", self.scale2()[1]))
         for batch in CHECK_BATCHES:
             ps = synthetic_point_state(batch, gen, self.hand_points, self.device)
-            for kernel, calls in self.level_inputs(ps).items():
-                for label, args in calls:
-                    got = self.wrappers[kernel](*args)
-                    torch.cuda.synchronize()
-                    want = self.reference(kernel)(*args)
-                    torch.cuda.synchronize()
-                    if got.dtype == torch.int32:
-                        if not torch.equal(got, want):
-                            bad = (got != want).sum().item()
-                            raise AssertionError(
-                                f"{kernel} {label} B={batch}: {bad} indices differ"
-                            )
-                        err = 0.0
-                    else:
-                        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
-                        err = (got - want).abs().max().item()
-                    self.errors[kernel] = max(self.errors[kernel], err)
-                    log(f"[check] {kernel:13s} {label} B={batch:4d} "
-                        f"shape={tuple(got.shape)} max_abs_err={err:.3e} ok")
+            calls = [(kernel, tag + label, args) for tag, state in scaled
+                     for kernel, level in self.level_inputs(ps, state).items()
+                     for label, args in level
+                     # the same clouds and centres at either scale
+                     if not (tag and kernel in ("fps", "ball_query"))]
+            for kernel, label, args in calls:
+                got = self.wrappers[kernel](*args)
+                torch.cuda.synchronize()
+                want = self.reference(kernel)(*args)
+                torch.cuda.synchronize()
+                if got.dtype == torch.int32:
+                    if not torch.equal(got, want):
+                        bad = (got != want).sum().item()
+                        raise AssertionError(f"{kernel} {label} B={batch}: {bad} indices differ")
+                    err = 0.0
+                else:
+                    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+                    err = (got - want).abs().max().item()
+                self.errors[kernel] = max(self.errors[kernel], err)
+                log(f"[check] {kernel:13s} {label} B={batch:4d} "
+                    f"shape={tuple(got.shape)} max_abs_err={err:.3e} ok")
+
+    def check_fps(self, gen, clouds=None):
+        """K1's indices exactly equal to fps_reference's: on tie-heavy
+        clouds (FPS_TIE_SHAPES; a cloud of 8 points repeated, whose
+        distances tie at every step, and points on an integer grid, whose
+        squared distances are small integers) and on synthetic serving
+        clouds at B = 1, 256, 1024; or, given `clouds` (B, N, 3), on
+        their first 1, 256 and 1024 (the env's)."""
+        sampling = self.sampling
+        cases = []
+        if clouds is None:
+            for b, n in FPS_TIE_SHAPES:
+                base = torch.rand((b, 8, 3), generator=gen, device=self.device)
+                cases.append((f"repeated B={b} N={n}",
+                              base.repeat(1, -(-n // 8), 1)[:, :n].contiguous()))
+                grid = torch.randint(0, 4, (b, n, 3), generator=gen, device=self.device)
+                cases.append((f"grid B={b} N={n}", grid.float()))
+            for b in MAIN_BATCHES[:1] + (TRAIN_BATCH, ENV_BATCH):
+                ps = synthetic_point_state(b, gen, self.hand_points, self.device)
+                cases.append((f"synthetic B={b}", ps[:, :3, 6:].transpose(1, 2).contiguous()))
+        else:
+            for b in (1, TRAIN_BATCH, ENV_BATCH):
+                cases.append((f"env B={b}", clouds[:b].contiguous()))
+        npoint = SA_LEVELS[0][1]
+        for label, xyz in cases:
+            got = sampling.furthest_point_sampling(xyz, npoint)
+            want = sampling.fps_reference(xyz, npoint)
+            if not torch.equal(got, want):
+                bad = (got != want).sum().item()
+                raise AssertionError(f"fps {label}: {bad} indices differ")
+            # SA2's input: the centres of SA1
+            centres = sampling.gather_points(xyz, want).contiguous()
+            if not torch.equal(sampling.furthest_point_sampling(centres, npoint),
+                               sampling.fps_reference(centres, npoint)):
+                raise AssertionError(f"fps {label} SA2: indices differ")
+            log(f"[check] fps           {label} N={xyz.shape[1]}: indices equal at SA1 "
+                "and SA2 ok")
 
     def check_k4(self, gen):
-        """K4 (mlp_maxpool, wgmma in 3xTF32) against its plain version
-        within 1e-4 at B = 1, 3, 256 and 1024 (one, two, 64 and 256 full
-        128-row tiles: partial and ragged tiles included) on the serving
-        shapes' SA3 input, on a batch whose last layer's pre-activations
-        are all negative (a max of zeros), and at the shape of K6's final
-        forward (B=256, the learner state's SA3 weights folded with the
-        batch statistics); two calls bit-identical each. Times each
-        (CUDA events)."""
-        sa, sa_train = self.sa, self.sa_train
+        """K4 (mlp_maxpool) against its plain version within 1e-4 at B =
+        1, 3, 256 and 1024 (one, two, 64 and 256 full 128-row tiles:
+        partial and ragged tiles included) on both branches of its width
+        test: the fused wgmma kernel on the serving shapes' SA3 input at
+        scale 1, the layer engine of K6 on the scale 2 agent's (515 -> 512
+        -> 512 -> 1024); and on a batch whose last layer's pre-activations
+        are all negative (a max of zeros); two calls bit-identical each.
+        Times each (CUDA events). At B = 256 and 1024 the layer engine runs
+        the fused branch's inputs too, against the plain version, and is
+        timed beside the fused kernel: the reason for the width test."""
+        sa = self.sa
         for batch in K4_BATCHES:
             ps = synthetic_point_state(batch, gen, self.hand_points, self.device)
-            (label, (full, weights)), = self.level_inputs(ps)["mlp_maxpool"]
-            cases = [(f"{label} B={batch}", full, weights)]
-            if batch == 3:
-                (w1, b1), layer2, (w3, b3) = weights
-                cases.append((f"{label} B={batch} layer 3 all negative", full,
-                              ((w1, b1), layer2, (w3, b3 - 1e4))))
-            if batch == TRAIN_BATCH:
-                tps = self.learner_batch(batch, gen)["point_state"]
-                (_, _, (tfull, dense)), = [c for c in self.train_level_inputs(tps)
-                                          if c[1] == "groupall_train"]
-                stats = sa_train.groupall_train_reference(tfull, dense)[1]
-                affine = [sa_train.bn_affine(m, v, sc, bi)
-                          for (m, v), (_, _, sc, bi) in zip(stats, dense)]
-                cases.append((f"K6 final forward B={batch}", tfull,
-                              sa_train._folded(dense, affine)))
+            cases = []
+            for tag, state in (("", self.state), ("scale 2 ", self.scale2()[1])):
+                (label, (full, weights)), = self.level_inputs(ps, state)["mlp_maxpool"]
+                cin, widths = full.shape[-1], [w.shape[1] for w, _ in weights]
+                branch = "fused" if sa.k4_fused_takes(cin, *widths) else "engine"
+                cases.append((f"{tag}{label} B={batch} ({branch})", full, weights))
+                if batch == 3:
+                    (w1, b1), layer2, (w3, b3) = weights
+                    cases.append((f"{tag}{label} B={batch} ({branch}) layer 3 all negative",
+                                  full, ((w1, b1), layer2, (w3, b3 - 1e4))))
+            if batch == K4_BATCHES[0]:
+                self.check_weight_pack(cases)
             for name, x, ws in cases:
                 got, again = sa.mlp_maxpool(x, ws), sa.mlp_maxpool(x, ws)
                 want = sa.mlp_maxpool_reference(x, ws)
@@ -631,6 +730,28 @@ class Smoke:
                 log(f"[check] mlp_maxpool   {name}: max_abs_err={err:.3e}, "
                     f"{int((want == 0).sum())} of {want.numel()} outputs 0, two calls "
                     f"bit-identical, kernel {ms:.4f} ms ok")
+                if "(fused)" in name and batch >= 256 and "negative" not in name:
+                    engine = sa.groupall_engine(x, ws)[0]
+                    torch.testing.assert_close(engine, want, rtol=1e-4, atol=1e-4)
+                    ems = cuda_ms(lambda: sa.groupall_engine(x, ws))
+                    log(f"[check] mlp_maxpool   {name}: the layer engine on the same input "
+                        f"max_abs_err={(engine - want).abs().max().item():.3e}, "
+                        f"{ems:.4f} ms against the fused kernel's {ms:.4f} ms ok")
+
+    def check_weight_pack(self, cases):
+        """The weight-pack kernel of K4 and K6 (`layer_weight_pack` on the
+        card) equal bit for bit to its plain version on every layer of
+        `cases` [(name, full, weights)]: the TF32 split rounds as the
+        card's cvt.rna does."""
+        for name, _, ws in cases:
+            for i, (w, _) in enumerate(ws):
+                got = self.sa.layer_weight_pack(w)
+                want = self.sa.layer_weight_pack_reference(w)
+                if not torch.equal(got, want):
+                    raise AssertionError(f"weight pack {name} layer {i + 1}: differs from "
+                                         "the plain version")
+            log(f"[check] weight pack   {name}: {len(ws)} layers bit-identical to the plain "
+                "version ok")
 
     # -- phase 3 --------------------------------------------------------------
     def main_path(self, gen):
@@ -810,12 +931,13 @@ class Smoke:
         return totals
 
     # -- K5/K6 at the learner's shapes -------------------------------------------
-    def train_level_inputs(self, point_state, action=None):
+    def train_level_inputs(self, point_state, action=None, state=None):
         """[(label, kernel, args)] of one train-mode encoder forward (the
         value encoder when `action` is given) at each level, computed with
-        the plain versions on the learner state's weights."""
+        the plain versions on the weights of `state` (default: the learner
+        state)."""
         sampling, sa_train = self.sampling, self.sa_train
-        feat = self.train_state.feat
+        feat = (state or self.train_state).feat
         if action is None:
             tag, enc, pc = "policy", feat.encoder, feat._prep(point_state, feat.policy_in)
         else:
@@ -840,18 +962,22 @@ class Smoke:
         return {"sa_train": self.sa_train.sa_train_reference,
                 "groupall_train": self.sa_train.groupall_train_reference}[kernel]
 
-    def train_calls(self, batch, gen):
+    def train_calls(self, batch, gen, state=None):
         """The policy encoder's three levels and the value encoder's SA1."""
         ps = synthetic_point_state(batch, gen, self.hand_points, self.device)
         action = torch.rand((batch, 6), generator=gen, device=self.device) * 0.1 - 0.05
         with torch.no_grad():
-            value = [c for c in self.train_level_inputs(ps, action) if c[0] == "value SA1"]
-            return self.train_level_inputs(ps) + value
+            value = [c for c in self.train_level_inputs(ps, action, state)
+                     if c[0] == "value SA1"]
+            return self.train_level_inputs(ps, state=state) + value
 
     def check_train_kernels(self, gen):
-        for batch in CHECK_BATCHES:
-            for label, kernel, args in self.train_calls(batch, gen):
-                self.check_train_call(label, kernel, args, batch)
+        """K5 and K6 at the learner's shapes of the scale 1 and scale 2
+        agents."""
+        for tag, state in (("", None), ("scale 2 ", self.scale2()[2])):
+            for batch in CHECK_BATCHES:
+                for label, kernel, args in self.train_calls(batch, gen, state):
+                    self.check_train_call(tag + label, kernel, args, batch)
 
     def check_train_call(self, label, kernel, args, batch, ref_args=None, grads=True):
         """The kernels' pooled output and statistics against the plain
@@ -860,10 +986,13 @@ class Smoke:
         through the wrapper within 1e-3."""
         with torch.no_grad():
             got, stats = self.wrappers[kernel](*args)
-            _, again = self.wrappers[kernel](*args)
+            got2, again = self.wrappers[kernel](*args)
             torch.cuda.synchronize()
             want, want_stats = self.train_reference(kernel)(*(ref_args or args))
         torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+        if not torch.equal(got, got2):
+            raise AssertionError(f"{kernel} {label} B={batch}: pooled output differs between "
+                                 "two calls")
         err = (got - want).abs().max().item()
         for mv, want_mv, mv2 in zip(stats, want_stats, again):
             for t, w, t2 in zip(mv, want_mv, mv2):
@@ -895,7 +1024,7 @@ class Smoke:
                                            atol=1e-3 * w.abs().max().item(), msg=f"leaf {i}")
             note = f"grad max_abs_err={gerr:.3e} (largest grad {scale:.3e})"
         log(f"[check] {kernel:14s} {label:10s} B={batch:4d} pooled+stats "
-            f"max_abs_err={err:.3e}, {note}, stats bit-identical over two calls ok")
+            f"max_abs_err={err:.3e}, {note}, pooled and stats bit-identical over two calls ok")
 
     def check_compaction(self, gen):
         """K3 and K5 at B=8 on groups that stress the compaction
@@ -1009,11 +1138,14 @@ class Smoke:
                      "count_distinct_kernel", "scan_counts_kernel", "fill_rows_kernel",
                      "sa_train_layer_kernel", "sa_train_pool_kernel"),
                  "K5/K6 statistics reductions": ("reduce_stats_kernel",),
-                 "K6 stats passes": ("groupall_train_stats_kernel",),
-                 "K4 final forwards of K6": ("mlp_maxpool_kernel",),
+                 "K6 weight packs, layer passes and pooling": (
+                     "weight_pack_kernel", "groupall_layer_kernel", "groupall_pool_kernel"),
                  "K1/K2": ("fps_kernel", "ball_query_kernel")}
         split = {p: sum(ms for key, ms in rows if any(n in key for n in names))
                  for p, names in parts.items()}
+        stray = [key for key, _ in rows if "mlp_maxpool_kernel" in key]
+        if stray:  # K6 pools itself: a train update runs no K4
+            raise AssertionError(f"{name} update ran {stray}")
         backward = spans.get(self.sa_train.BACKWARD_RANGE, 0.0)
         log(f"[profile] {name} update: device busy {busy:.3f} ms per update, idle share "
             f"{max(0.0, 1 - busy / host_ms):.3f} of the {host_ms:.3f} ms host-clock update")
@@ -1040,7 +1172,7 @@ class Smoke:
         out["collide_future"] = (rows == 2).float()
         return out
 
-    def card_vs_cpu(self, gen):
+    def card_vs_cpu(self, gen, updates=2):
         """Two DDPG updates at B=8 on the card and on the CPU from the same
         state, batch and smoothing draws, with the Q2 hard copy and the
         collision terms on. The state carries Adam moments from one
@@ -1055,62 +1187,168 @@ class Smoke:
         second compounds Adam's response to gradients within rounding of
         0: PR 3's kernels and these alike then miss the 1e-3 metric bound
         on most batches."""
-        from gaddpg_tpu_torch.agents import AgentConfig, create_agent_state, make_ddpg_update
-
-        cfg = AgentConfig(target_update_interval=1, collision_aux_weight=0.1,
-                          collision_demo_discount=0.5)
-        state_cpu = create_agent_state(cfg, generator=torch.Generator().manual_seed(2),
-                                       device="cpu")
-        update, update_cpu = make_ddpg_update(cfg), make_ddpg_update(cfg, device="cpu")
-        batches = [self.mixed_batch(8, gen) for _ in range(3)]
-        draws = [torch.rand((8, 6), generator=gen, device=self.device) for _ in range(3)]
-        cpu = lambda t: {k: v.cpu() for k, v in t.items()} if isinstance(t, dict) else t.cpu()
-        update_cpu(state_cpu, cpu(batches[0]), noise_draws=cpu(draws[0]))
-        state_cpu.update_step = 0
-        state, before = state_cpu.to(self.device), state_cpu.to("cpu")
+        cfg, update, update_cpu, state_cpu = self.b8_learner(self.cfg.feature_dim)
+        batches = [self.mixed_batch(8, gen) for _ in range(1 + updates)]
+        draws = [torch.rand((8, 6), generator=gen, device=self.device) for _ in batches]
+        state, before = self.b8_start(update_cpu, state_cpu, batches[0], draws[0])
         err = 0.0
-        for i in (1, 2):
-            xyz = batches[i]["point_state"][:, :3, 6:].transpose(1, 2).contiguous()
-            idx = self.sampling.furthest_point_sampling(xyz, 32)
-            centers = self.sampling.gather_points(xyz, idx)
-            if not (torch.equal(idx.cpu(), self.sampling.furthest_point_sampling(xyz.cpu(), 32))
-                    and torch.equal(self.sampling.ball_query(centers, xyz, 0.02, 64).cpu(),
-                                    self.sampling.ball_query(centers.cpu(), xyz.cpu(), 0.02, 64))):
-                raise AssertionError("learner B=8: FPS / ball-query indices differ card vs CPU")
-            got = update(state, batches[i], noise_draws=draws[i])
-            want = update_cpu(state_cpu, cpu(batches[i]), noise_draws=cpu(draws[i]))
-            if i == 1 and float(want["actor_critic_loss"]) == 0.0:
-                raise AssertionError("learner B=8: the actor term is not live")
-            for k, w in want.items():
-                torch.testing.assert_close(got[k].cpu(), w, rtol=1e-3, atol=1e-3,
-                                           msg=f"update {i} {k}")
-                err = max(err, (got[k].cpu() - w).abs().item())
+        for i in range(1, 1 + updates):
+            err = max(err, self.b8_update(update, update_cpu, state, state_cpu, batches[i],
+                                          draws[i], actor=i == 1))
             if i == 1:
-                serr = self.compare_updated(cfg, before, state, state_cpu)
+                serr, _ = self.compare_updated(cfg, before, state, state_cpu)
                 state = state_cpu.to(self.device)
-        log(f"[learner] ddpg updates B=8: indices equal, card vs CPU metrics of two updates "
-            f"max_abs_err={err:.3e}, running statistics max_abs_err={serr:.3e}, "
+        log(f"[learner] ddpg updates B=8: indices equal, card vs CPU metrics of {updates} "
+            f"update(s) max_abs_err={err:.3e}, running statistics max_abs_err={serr:.3e}, "
             f"parameter and target moves within bounds ok")
 
-    def compare_updated(self, cfg, before, state, state_cpu):
+    def b8_learner(self, feature_dim):
+        """(config, card update, CPU update, CPU state) of the B=8 card-vs-CPU
+        updates, with the Q2 hard copy and the collision terms on."""
+        from gaddpg_tpu_torch.agents import AgentConfig, create_agent_state, make_ddpg_update
+
+        cfg = AgentConfig(feature_dim=feature_dim, target_update_interval=1,
+                          collision_aux_weight=0.1, collision_demo_discount=0.5)
+        state_cpu = create_agent_state(cfg, generator=torch.Generator().manual_seed(2),
+                                       device="cpu")
+        return cfg, make_ddpg_update(cfg), make_ddpg_update(cfg, device="cpu"), state_cpu
+
+    def b8_start(self, update_cpu, state_cpu, batch, draws):
+        """One CPU update of `state_cpu` in place (Adam moments to carry),
+        then update_step back to 0 (the actor term on) -> (its copy on the
+        card, its copy on the CPU)."""
+        update_cpu(state_cpu, _cpu(batch), noise_draws=draws.cpu())
+        state_cpu.update_step = 0
+        return state_cpu.to(self.device), state_cpu.to("cpu")
+
+    def b8_update(self, update, update_cpu, state, state_cpu, batch, draws, actor):
+        """One update of `state` on the card and of `state_cpu` on the CPU
+        from the same batch and draws: FPS and ball-query indices equal on
+        both, metrics within 1e-3 -> the metrics' largest difference."""
+        xyz = batch["point_state"][:, :3, 6:].transpose(1, 2).contiguous()
+        idx = self.sampling.furthest_point_sampling(xyz, 32)
+        centers = self.sampling.gather_points(xyz, idx)
+        if not (torch.equal(idx.cpu(), self.sampling.furthest_point_sampling(xyz.cpu(), 32))
+                and torch.equal(self.sampling.ball_query(centers, xyz, 0.02, 64).cpu(),
+                                self.sampling.ball_query(centers.cpu(), xyz.cpu(), 0.02, 64))):
+            raise AssertionError("learner B=8: FPS / ball-query indices differ card vs CPU")
+        got = update(state, batch, noise_draws=draws)
+        want = update_cpu(state_cpu, _cpu(batch), noise_draws=draws.cpu())
+        if actor and float(want["actor_critic_loss"]) == 0.0:
+            raise AssertionError("learner B=8: the actor term is not live")
+        err = 0.0
+        for k, w in want.items():
+            torch.testing.assert_close(got[k].cpu(), w, rtol=1e-3, atol=1e-3, msg=k)
+            err = max(err, (got[k].cpu() - w).abs().item())
+        return err
+
+    def scale2_card_vs_cpu(self):
+        """The model_scale 2 agent on the card against the CPU, each batch
+        from a generator of its own: `select_action` at B=8 (the launches
+        of one call as at scale 1, K4 on its layer engine) within 1e-3; then
+        for each of SCALE2_SEEDS one B=8 DDPG update from a common state
+        (card_vs_cpu's first update), within the scale 1 bounds. Beside each
+        seed's card-vs-CPU moves it logs the plain version's own float32
+        spread on the same batch: the CPU update run again with the point
+        states nudged by one ulp (each float in a random direction), against
+        the CPU update. Moves that differ come in discrete events (a ReLU or
+        a max-pool argmax flipped by rounding, carried through the FC
+        trunk's BatchNorm over 8 rows) that any perturbation of the batch
+        may set off; the spread shows how large they come on these
+        batches. Every seed runs; the phase fails after the last if any
+        seed was off its bounds."""
+        from gaddpg_tpu_torch.agents import make_select_action
+
+        cfg, state, _ = self.scale2()
+        gen = torch.Generator(device=self.device).manual_seed(SCALE2_SELECT_SEED)
+        select, select_cpu = make_select_action(cfg), make_select_action(cfg, device="cpu")
+        ps = synthetic_point_state(8, gen, self.hand_points, self.device)
+        remain = torch.full((8,), 10.0, device=self.device)
+        with torch.no_grad():
+            self.reset_counts()
+            action, aux = select(state, ps, remain)
+            counts = self.counts()
+            want = select_cpu(state.to("cpu"), ps.cpu(), remain.cpu())
+        if counts != PER_CALL:
+            raise AssertionError(f"scale 2 select_action: launches {counts}, expected {PER_CALL}")
+        err = 0.0
+        for name, got, w in (("action", action, want[0]), ("aux", aux, want[1])):
+            if got.shape != w.shape or not torch.isfinite(got).all():
+                raise AssertionError(f"scale 2 select_action: {name} shape/finite check failed")
+            torch.testing.assert_close(got.cpu(), w, rtol=1e-3, atol=1e-3)
+            err = max(err, (got.cpu() - w).abs().max().item())
+        log(f"[main] select_action scale 2 B=8: launches {counts}, card vs CPU "
+            f"max_abs_err={err:.3e} ok")
+
+        cfg, update, update_cpu, start = self.b8_learner(SCALE2_FEATURE)
+        worst, failed = {}, []
+        for seed in SCALE2_SEEDS:
+            gen = torch.Generator(device=self.device).manual_seed(seed)
+            batches = [self.mixed_batch(8, gen) for _ in range(2)]
+            draws = [torch.rand((8, 6), generator=gen, device=self.device) for _ in batches]
+            state_cpu = start.to("cpu")
+            state, before = self.b8_start(update_cpu, state_cpu, batches[0], draws[0])
+            nudged = state_cpu.to("cpu")
+            err = self.b8_update(update, update_cpu, state, state_cpu, batches[1], draws[1],
+                                 actor=True)
+            try:
+                serr, offs = self.compare_updated(cfg, before, state, state_cpu, quiet=True)
+            except AssertionError as e:
+                failed.append(f"seed {seed}: {e}")
+                serr, offs = float("nan"), self.move_offs(cfg, before, state, state_cpu)
+            batch = _cpu(batches[1])
+            nudge_gen = torch.Generator().manual_seed(1000 + seed)
+            for key in ("point_state", "next_point_state"):
+                x = batch[key]
+                batch[key] = torch.nextafter(x, x + torch.randn(x.shape, generator=nudge_gen).sign())
+            update_cpu(nudged, batch, noise_draws=draws[1].cpu())
+            spread = self.move_offs(cfg, before, nudged, state_cpu)
+            for group, (off, total, _) in offs.items():
+                w = worst.setdefault(group, [0, 0, total])
+                w[0], w[1] = max(w[0], off), max(w[1], spread[group][0])
+            log(f"[learner] scale 2 seed {seed}: metrics max_abs_err={err:.3e}, running "
+                f"statistics max_abs_err={serr:.3e}; moves off, card vs CPU | one-ulp nudge "
+                "vs CPU: " + ", ".join(f"{g} {o} | {spread[g][0]} of {n} (bound {s})"
+                                       for g, (o, n, s) in offs.items()))
+        log(f"[learner] scale 2 over seeds {list(SCALE2_SEEDS)}: largest share of moves off, "
+            "card vs CPU | one-ulp nudge vs CPU: " + ", ".join(
+                f"{g} {c / n:.2e} | {s / n:.2e}" for g, (c, s, n) in worst.items()))
+        if failed:
+            raise AssertionError("scale 2 DDPG update, card vs CPU: " + "; ".join(failed))
+        log(f"[learner] ddpg update B=8 scale 2, {len(SCALE2_SEEDS)} seeds: indices equal, "
+            "metrics, running statistics and moves within bounds ok")
+
+    def move_offs(self, cfg, before, state, other):
+        """{group: (off, total, share bound)}: how many of each group's
+        elements moved from `before` differently in `state` and in `other`
+        by more than the group's threshold (in lr), against the bounds
+        that tests/test_torch_learner.py holds a JAX and a port update to
+        with the actor term on (`_move_bounds`). BatchNorm-fed Dense
+        biases are not counted (`compare_updated` holds them apart)."""
+        prev, a, b = (_learner_modules(s) for s in (before, state, other))
+        out = {}
+        for group, (lr, threshold, share) in _move_bounds(cfg).items():
+            off = total = 0
+            for (name, p0), (_, p), (_, q) in zip(prev[group].named_parameters(),
+                                                  a[group].named_parameters(),
+                                                  b[group].named_parameters()):
+                if _bn_fed_bias(group, name):
+                    continue
+                moved = (p.detach().cpu() - p0).double()
+                moved_other = (q.detach().cpu() - p0).double()
+                off += int(((moved - moved_other).abs() > threshold * lr).sum())
+                total += p.numel()
+            out[group] = (off, total, share)
+        return out
+
+    def compare_updated(self, cfg, before, state, state_cpu, quiet=False):
         """The card's and the CPU's state after one update from `before`:
         update_step and optimizer counts equal, running statistics within
-        1e-3, and every group's moves within the bounds that
-        tests/test_torch_learner.py holds a JAX and a port update to with
-        the actor term on (group -> (threshold in lr, share of elements
-        whose two moves differ by more)). A Dense bias that feeds a
-        BatchNorm has a gradient of 0 up to rounding: it may move either
-        way, by at most Adam's largest second-step move, 1.0014 lr.
-        Returns the running statistics' largest difference."""
-        bounds = {"policy": (cfg.lr, 0.5, 2e-2), "encoder": (cfg.feature_lr, 0.5, 2e-2),
-                  "critic": (cfg.value_lr, 0.1, 1e-3),
-                  "value_encoder": (cfg.feature_lr, 0.1, 2e-3),
-                  "critic_target": (cfg.value_lr, 0.1, 1e-3),
-                  "policy_target": (cfg.lr, 2.5e-4, 1e-3)}
-        modules = lambda st: {"policy": st.policy, "encoder": st.feat.encoder,
-                              "critic": st.critic, "value_encoder": st.feat.value_encoder,
-                              "critic_target": st.critic_target,
-                              "policy_target": st.policy_target}
+        1e-3, and every group's moves within `move_offs`' bounds (logged
+        unless `quiet`). A Dense bias that feeds a BatchNorm has a gradient
+        of 0 up to rounding: it may move either way, by at most Adam's
+        largest second-step move, 1.0014 lr. Returns (the running
+        statistics' largest difference, `move_offs`)."""
         if state.update_step != state_cpu.update_step or any(
                 state.opt[k].count != o.count for k, o in state_cpu.opt.items()):
             raise AssertionError("learner B=8: update_step or optimizer counts differ")
@@ -1120,25 +1358,23 @@ class Smoke:
             if b.is_floating_point():
                 torch.testing.assert_close(b.cpu(), b_cpu, rtol=1e-3, atol=1e-3, msg=name)
                 serr = max(serr, (b.cpu() - b_cpu).abs().max().item())
-        prev, got, want = modules(before), modules(state), modules(state_cpu)
-        for group, (lr, threshold, share) in bounds.items():
-            off = total = 0
+        bounds = _move_bounds(cfg)
+        prev, got, want = (_learner_modules(s) for s in (before, state, state_cpu))
+        for group, (lr, _, _) in bounds.items():
             for (name, p0), (_, p), (_, p_cpu) in zip(prev[group].named_parameters(),
                                                       got[group].named_parameters(),
                                                       want[group].named_parameters()):
-                moved, moved_cpu = (p.detach().cpu() - p0).double(), (p_cpu - p0).double()
-                if group.endswith("encoder") and name.endswith(".bias") and (
-                        ".dense." in name or name.startswith("fc.")):
-                    if max(moved.abs().max(), moved_cpu.abs().max()) > 1.0014 * lr * (1 + 1e-4):
-                        raise AssertionError(f"learner B=8: {group} {name} moved more than lr")
-                    continue
-                off += int(((moved - moved_cpu).abs() > threshold * lr).sum())
-                total += p.numel()
-            log(f"[learner]   {group}: {off} of {total} moves differ by more than "
-                f"{threshold} lr (bound {share})")
+                moved = max((p.detach().cpu() - p0).abs().max(), (p_cpu - p0).abs().max())
+                if _bn_fed_bias(group, name) and moved > 1.0014 * lr * (1 + 1e-4):
+                    raise AssertionError(f"learner B=8: {group} {name} moved more than lr")
+        offs = self.move_offs(cfg, before, state, state_cpu)
+        for group, (off, total, share) in offs.items():
+            if not quiet:
+                log(f"[learner]   {group}: {off} of {total} moves differ by more than "
+                    f"{bounds[group][1]} lr (bound {share})")
             if off > share * total:
                 raise AssertionError(f"learner B=8: {group}: {off} of {total} moves differ")
-        return serr
+        return serr, offs
 
     def time_train(self, label, kernel, args):
         """One train kernel's forward and its plain version (CUDA events)
@@ -1158,8 +1394,10 @@ class Smoke:
         point states of the env path after its expert steps, then each on
         the worst case of its SA2 inputs (every slot computed), beside its
         plain version, distinct-row share and bounds (CUDA events). The
-        synthetic batches of phases 5 and 6 have other distinct shares."""
+        synthetic batches of phases 5 and 6 have other distinct shares.
+        Before, K1 on the same clouds (`check_fps`)."""
         with torch.no_grad():
+            self.check_fps(None, point_state[:, :3, 6:].transpose(1, 2))
             calls = self.level_inputs(point_state[:ENV_BATCH])["sa_gather_mlp"]
             for label, args in calls:
                 self.time_serving("sa_gather_mlp", f"{label} env", ENV_BATCH, args)
@@ -1195,6 +1433,21 @@ class Smoke:
             if kernel == "sa_train":
                 self.time_train(f"{label} bench", kernel, args)
         return totals
+
+    def scale2_timings(self, gen):
+        """The kernels the model_scale 2 agent runs at its wider widths,
+        beside their plain versions and bounds (CUDA events): K3 and K4 (on
+        the layer engine) in one serving forward at B=1024, K5 and K6 in
+        one policy-encoder train forward at B=256. Not in the JSON line."""
+        _, state, train_state = self.scale2()
+        ps = synthetic_point_state(ENV_BATCH, gen, self.hand_points, self.device)
+        with torch.no_grad():
+            for kernel in ("sa_gather_mlp", "mlp_maxpool"):
+                for label, args in self.level_inputs(ps, state)[kernel]:
+                    self.time_serving(kernel, f"scale 2 {label}", ENV_BATCH, args)
+        for label, kernel, args in self.train_calls(TRAIN_BATCH, gen, train_state):
+            if label.startswith("policy"):
+                self.time_train(f"scale 2 {label}", kernel, args)
 
     # -- phase 7: K7 against its plain version --------------------------------------
     def contact_rich_states(self, batch, gen):
@@ -1661,6 +1914,7 @@ def main() -> int:
         with torch.no_grad():  # serving: no autograd graph anywhere
             smoke = Smoke()
             smoke.check_kernels(gen)
+            smoke.check_fps(gen)
             smoke.check_k4(gen)
         smoke.check_train_kernels(gen)  # gradients: outside no_grad
         smoke.check_compaction(gen)
@@ -1670,6 +1924,7 @@ def main() -> int:
             totals = smoke.timings(select, inputs, gen)
         smoke.learner(gen)
         totals.update(smoke.train_timings(gen))
+        smoke.scale2_timings(gen)
         with torch.no_grad():
             from gaddpg_tpu_torch.envs.assets import library_from_index
             from gaddpg_tpu_torch.envs.grasp_env import EnvParams, PandaGraspEnv
@@ -1683,6 +1938,7 @@ def main() -> int:
             totals["contact_scan"] = smoke.env_timings(env, env_gen, stepped)
             smoke.cloud_timings(stepped_obs.point_state)
             smoke.env_card_vs_cpu(env, env_cpu)
+        smoke.scale2_card_vs_cpu()
         line = smoke.kernel_line(totals)
     except Exception:  # report which phase failed, then fail the run
         traceback.print_exc()

@@ -78,11 +78,20 @@ def check_supported(cfg: AgentConfig):
         )
 
 
+FEATURE_WIDTH = 512  # the encoder's output at model scale 1
+
+
 def make_modules(cfg: AgentConfig):
     """(feature encoder, policy head, critic) for `cfg`, with torch's
-    default init."""
+    default init. The encoders' model scale follows cfg.feature_dim, the
+    heads' input: PointNetEncoder(scale=s) outputs 512 s features, so
+    feature_dim = 1024 is the reference's model_scale 2."""
     check_supported(cfg)
-    feat = PointNetFeature()
+    scale, rest = divmod(cfg.feature_dim, FEATURE_WIDTH)
+    if rest or scale < 1:
+        raise ValueError(f"feature_dim={cfg.feature_dim}: the PointNet++ encoder outputs "
+                         f"a multiple of {FEATURE_WIDTH}")
+    feat = PointNetFeature(scale=scale)
     # the optional collision-prediction logit rides as the LAST dim of
     # the policy aux head
     policy = GaussianPolicy(

@@ -18,8 +18,8 @@ K4).
 Train (`train=True`): every BatchNorm normalises with its batch
 statistics. Grouped levels run K1 -> K2 -> `sa_train_fused` (K5, one
 pass per layer and a pooling pass), the group-all level
-`groupall_train_fused` (K6 stats passes, then K4), and the FC trunk uses Flax's arithmetic (fast variance clamped at
-0). The train forward does not touch the running statistics: it returns
+`groupall_train_fused` (K6, one launch per layer and a pooling pass),
+and the FC trunk uses Flax's arithmetic (fast variance clamped at 0). The train forward does not touch the running statistics: it returns
 each BatchNorm's batch (mean, var), and the caller folds the ones it
 keeps in with `PointNetEncoder.update_running_stats`, as the JAX update
 keeps the statistics of two of its five encoder forwards. The modules'

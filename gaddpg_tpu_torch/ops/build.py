@@ -26,7 +26,7 @@ import torch
 CSRC = Path(__file__).with_name("csrc")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
 KERNELS = ("fps", "ball_query", "sa_gather_mlp", "mlp_maxpool", "sa_train_stats",
-           "contact_scan")  # the sources, one library each
+           "groupall_layer", "contact_scan")  # the sources, one library each
 # shared memory one block may use on H100 (227 KB)
 MAX_SMEM_BYTES = 232448
 NVCC_FLAGS = (
@@ -42,10 +42,11 @@ SIGNATURES = {
     "sa_gather_mlp": ("sa_gather_mlp", "gaddpg_sa_gather_mlp", (_P,) * 11 + (_I,) * 8 + (_P,)),
     "mlp_maxpool": ("mlp_maxpool", "gaddpg_mlp_maxpool", (_P,) * 6 + (_I,) * 4 + (_P,)),
     "sa_train_layer": ("sa_train_stats", "gaddpg_sa_train_layer",
-                       (_P,) * 13 + (_I,) * 7 + (_P,)),
+                       (_P,) * 17 + (_I,) * 7 + (_P,)),
     "sa_train_pool": ("sa_train_stats", "gaddpg_sa_train_pool", (_P,) * 5 + (_I,) * 4 + (_P,)),
-    "groupall_train_stats": ("sa_train_stats", "gaddpg_groupall_train_stats",
-                             (_P,) * 14 + (_I,) * 7 + (_P,)),
+    "groupall_layer": ("groupall_layer", "gaddpg_groupall_layer", (_P,) * 13 + (_I,) * 4 + (_P,)),
+    "weight_pack": ("groupall_layer", "gaddpg_weight_pack", (_P, _I, _I, _P, _P)),
+    "groupall_pool": ("groupall_layer", "gaddpg_groupall_pool", (_P,) * 4 + (_I,) * 3 + (_P,)),
     "contact_scan": ("contact_scan", "gaddpg_contact_scan", (_P,) * 10 + (_I,) * 4 + (_P,)),
 }
 

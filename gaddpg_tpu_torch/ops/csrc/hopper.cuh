@@ -1,6 +1,8 @@
-// Hopper (sm_90a) building blocks of K4 (mlp_maxpool.cu): mbarriers, TMA
-// bulk copies into shared memory, and the TF32 warpgroup product
-// wgmma.m64n128k8 with A in registers and B in shared memory.
+// Hopper (sm_90a) building blocks of K4 (mlp_maxpool.cu) and K6
+// (groupall_layer.cu): mbarriers, TMA bulk copies into shared memory, the
+// TF32 warpgroup product wgmma.m64n128k8 with A in registers and B in
+// shared memory, and on them a warpgroup's pass over a weight stream in
+// 3xTF32.
 #pragma once
 
 #include <cstdint>
@@ -133,6 +135,136 @@ __device__ __forceinline__ void wgmma_tf32_m64n128k8(float (&d)[64], const uint3
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+// -- the weight stream and a warpgroup's pass --------------------------------
+
+// A pass: kPass output columns of a layer over a warpgroup's 64 rows. The
+// weights stream through shared memory as k8 steps, each the TF32 hi and
+// then lo part of an (8 inputs x kPass columns) block of w laid out K-major
+// in wgmma's core matrices (ops/sa.py `layer_weight_pack`).
+constexpr int kPass = 256;                       // output columns of a pass
+constexpr int kSub = kPass / 128;                // n128 products per pass
+constexpr int kStepFloats = kPass * 8;           // one TF32 part of a k8 step
+constexpr int kStageBytes = 2 * kStepFloats * 4; // hi and lo: 16 KB
+constexpr int kStages = 5;
+
+using PassAcc = float[kSub][64];
+using Frag = uint32_t[4];
+
+// The ring of weight stages and the block's walk over the weight stream:
+// stream step q (q = 0, 1, ... over all the block's tiles) is k8 step
+// q % per_tile of the pack and lands in stage q % kStages. Thread 0
+// issues each step's TMA bulk copy kAhead steps before the consumers
+// reach it; a stage is refilled once every consumer warp has released
+// its previous step.
+struct Ring {
+  float* stages;       // kStages x [hi, lo] steps
+  uint64_t* full_bar;  // a stage's copy has landed
+  uint64_t* empty_bar; // every consumer warp is done with a stage
+  const float* wpack;
+  int per_tile;        // stream steps of one tile
+  uint32_t total;      // stream steps of the block's walk
+
+  __device__ __forceinline__ void issue(uint32_t q) const {
+    if (q >= total) return;
+    const int st = q % kStages;
+    mbar_wait(&empty_bar[st], ((q / kStages) & 1) ^ 1);
+    mbar_arrive_expect_tx(&full_bar[st], kStageBytes);
+    bulk_copy_g2s(stages + st * 2 * kStepFloats,
+                  wpack + static_cast<size_t>(q % per_tile) * 2 * kStepFloats, kStageBytes,
+                  &full_bar[st]);
+  }
+};
+
+// Steps issued ahead of the one the consumers work on: a step's stage is
+// released one step late (after the next step's products are issued), so
+// the stage refilled at step q held step q - 2.
+constexpr int kAhead = kStages - 2;
+
+// One k8 step of a pass: acc += the warpgroup's rows (this warp's 16 at
+// `rows`, columns 8 k ..) @ stream step `it`, in 3xTF32, with the A
+// fragment split into `hi`, `lo`. The step's products stay in flight;
+// the previous step's (whose fragment is `prev_hi`, `prev_lo`) are
+// waited for, and its stage released, when `has_prev`.
+__device__ __forceinline__ void pass_step(PassAcc& acc, Frag& hi, Frag& lo, Frag& prev_hi,
+                                          Frag& prev_lo, bool has_prev, const float* rows,
+                                          int as, int k, uint32_t& it, const Ring& ring,
+                                          int lane) {
+  if (threadIdx.x == 0) ring.issue(it + kAhead);
+  __syncwarp();
+  const int g = lane >> 2, t = lane & 3;
+  const float* a = rows + g * as + 8 * k + t;
+  split_tf32(a[0], hi[0], lo[0]);
+  split_tf32(a[8 * as], hi[1], lo[1]);
+  split_tf32(a[4], hi[2], lo[2]);
+  split_tf32(a[8 * as + 4], hi[3], lo[3]);
+  const int st = it % kStages;
+  mbar_wait(&ring.full_bar[st], (it / kStages) & 1);
+  const float* b_hi = ring.stages + st * 2 * kStepFloats;
+  const float* b_lo = b_hi + kStepFloats;
+  wgmma_fence();
+#pragma unroll
+  for (int s = 0; s < kSub; ++s) {
+    // columns 128 s ..: 16 core matrices 128 bytes apart; the k8 step's
+    // two halves kPass * 16 bytes apart
+    const uint64_t d_hi = smem_desc(b_hi + s * 128 * 4, kPass * 16, 128);
+    const uint64_t d_lo = smem_desc(b_lo + s * 128 * 4, kPass * 16, 128);
+    wgmma_tf32_m64n128k8(acc[s], lo, d_hi);
+    wgmma_tf32_m64n128k8(acc[s], hi, d_lo);
+    wgmma_tf32_m64n128k8(acc[s], hi, d_hi);
+  }
+  wgmma_commit();
+  wgmma_wait<1>();  // the previous step's products are done
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    fence_reg(prev_hi[i]);
+    fence_reg(prev_lo[i]);
+  }
+  __syncwarp();
+  if (has_prev && lane == 0) mbar_arrive(&ring.empty_bar[(it - 1) % kStages]);
+  ++it;
+}
+
+// acc += the warpgroup's 64 rows (this warp's 16 at `rows`, stride as) @
+// the next `steps` k8 steps of the weight stream, all products done on
+// return (so the caller may then overwrite the rows). `it` counts the
+// stream's steps across the block's whole walk.
+__device__ __forceinline__ void accumulate_pass(PassAcc& acc, const float* rows, int as,
+                                                int steps, uint32_t& it, const Ring& ring,
+                                                int lane) {
+  Frag hi0, lo0, hi1, lo1;  // two fragments: one in flight, one loading
+  int k = 0;
+  for (; k + 1 < steps; k += 2) {
+    pass_step(acc, hi0, lo0, hi1, lo1, k > 0, rows, as, k, it, ring, lane);
+    pass_step(acc, hi1, lo1, hi0, lo0, true, rows, as, k + 1, it, ring, lane);
+  }
+  if (k < steps) pass_step(acc, hi0, lo0, hi1, lo1, k > 0, rows, as, k, it, ring, lane);
+  wgmma_wait<0>();
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    fence_reg(hi0[i]);
+    fence_reg(lo0[i]);
+    fence_reg(hi1[i]);
+    fence_reg(lo1[i]);
+  }
+#pragma unroll
+  for (int s = 0; s < kSub; ++s)
+#pragma unroll
+    for (int i = 0; i < 64; ++i) fence_reg(acc[s][i]);
+  __syncwarp();
+  if (lane == 0) mbar_arrive(&ring.empty_bar[(it - 1) % kStages]);
+}
+
+// acc = the warpgroup's 64 rows @ the next `steps` k8 steps of the
+// weight stream (accumulate_pass from zero).
+__device__ __forceinline__ void run_pass(PassAcc& acc, const float* rows, int as, int steps,
+                                         uint32_t& it, const Ring& ring, int lane) {
+#pragma unroll
+  for (int s = 0; s < kSub; ++s)
+#pragma unroll
+    for (int i = 0; i < 64; ++i) acc[s][i] = 0.0f;
+  accumulate_pass(acc, rows, as, steps, it, ring, lane);
 }
 
 }  // namespace gaddpg

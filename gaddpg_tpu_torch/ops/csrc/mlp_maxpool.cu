@@ -49,16 +49,13 @@
 
 namespace {
 
+using namespace gaddpg;
+
 constexpr int kRows = 64;                        // rows of a warpgroup's tile (wgmma M)
 constexpr int kConsumers = 2;                    // consumer warpgroups of a block
 constexpr int kBlockRows = kRows * kConsumers;
 constexpr int kThreads = 128 * kConsumers;    // 8 warps: up to 255 registers
-constexpr int kPass = 256;                       // output columns of a pass
 constexpr int kHidden = 256;                     // width of both hidden layers
-constexpr int kSub = kPass / 128;                // n128 products per pass
-constexpr int kStepFloats = kPass * 8;           // one TF32 part of a k8 step
-constexpr int kStageBytes = 2 * kStepFloats * 4; // hi and lo: 16 KB
-constexpr int kStages = 5;
 constexpr int kMaxIn = 288;                      // widest input the tiles hold
 constexpr int kLoadBatch = 44;  // loads a lane keeps in flight: 3 round trips at C_in = 259
 
@@ -106,115 +103,6 @@ __device__ __forceinline__ void load_rows(const Args& a, int row0, int kin, floa
       if (e < total) dst[(e / kin) * as + e % kin] = v[u];
     }
   }
-}
-
-using PassAcc = float[kSub][64];
-using Frag = uint32_t[4];
-
-// The ring of weight stages and the block's walk over the weight stream:
-// stream step q (q = 0, 1, ... over all the block's tiles) is k8 step
-// q % per_tile of the pack and lands in stage q % kStages. Thread 0
-// issues each step's TMA bulk copy kAhead steps before the consumers
-// reach it; a stage is refilled once all eight consumer warps have
-// released its previous step.
-struct Ring {
-  float* stages;       // kStages x [hi, lo] steps
-  uint64_t* full_bar;  // a stage's copy has landed
-  uint64_t* empty_bar; // every consumer warp is done with a stage
-  const float* wpack;
-  int per_tile;        // stream steps of one tile
-  uint32_t total;      // stream steps of the block's walk
-
-  __device__ __forceinline__ void issue(uint32_t q) const {
-    if (q >= total) return;
-    const int st = q % kStages;
-    gaddpg::mbar_wait(&empty_bar[st], ((q / kStages) & 1) ^ 1);
-    gaddpg::mbar_arrive_expect_tx(&full_bar[st], kStageBytes);
-    gaddpg::bulk_copy_g2s(stages + st * 2 * kStepFloats,
-                          wpack + static_cast<size_t>(q % per_tile) * 2 * kStepFloats,
-                          kStageBytes, &full_bar[st]);
-  }
-};
-
-// Steps issued ahead of the one the consumers work on: a step's stage is
-// released one step late (after the next step's products are issued), so
-// the stage refilled at step q held step q - 2.
-constexpr int kAhead = kStages - 2;
-
-// One k8 step of a pass: acc += the warpgroup's rows (this warp's 16 at
-// `rows`, columns 8 k ..) @ stream step `it`, in 3xTF32, with the A
-// fragment split into `hi`, `lo`. The step's products stay in flight;
-// the previous step's (whose fragment is `prev_hi`, `prev_lo`) are
-// waited for, and its stage released, when `has_prev`.
-__device__ __forceinline__ void pass_step(PassAcc& acc, Frag& hi, Frag& lo, Frag& prev_hi,
-                                          Frag& prev_lo, bool has_prev, const float* rows,
-                                          int as, int k, uint32_t& it, const Ring& ring,
-                                          int lane) {
-  if (threadIdx.x == 0) ring.issue(it + kAhead);
-  __syncwarp();
-  const int g = lane >> 2, t = lane & 3;
-  const float* a = rows + g * as + 8 * k + t;
-  gaddpg::split_tf32(a[0], hi[0], lo[0]);
-  gaddpg::split_tf32(a[8 * as], hi[1], lo[1]);
-  gaddpg::split_tf32(a[4], hi[2], lo[2]);
-  gaddpg::split_tf32(a[8 * as + 4], hi[3], lo[3]);
-  const int st = it % kStages;
-  gaddpg::mbar_wait(&ring.full_bar[st], (it / kStages) & 1);
-  const float* b_hi = ring.stages + st * 2 * kStepFloats;
-  const float* b_lo = b_hi + kStepFloats;
-  gaddpg::wgmma_fence();
-#pragma unroll
-  for (int s = 0; s < kSub; ++s) {
-    // columns 128 s ..: 16 core matrices 128 bytes apart; the k8 step's
-    // two halves kPass * 16 bytes apart
-    const uint64_t d_hi = gaddpg::smem_desc(b_hi + s * 128 * 4, kPass * 16, 128);
-    const uint64_t d_lo = gaddpg::smem_desc(b_lo + s * 128 * 4, kPass * 16, 128);
-    gaddpg::wgmma_tf32_m64n128k8(acc[s], lo, d_hi);
-    gaddpg::wgmma_tf32_m64n128k8(acc[s], hi, d_lo);
-    gaddpg::wgmma_tf32_m64n128k8(acc[s], hi, d_hi);
-  }
-  gaddpg::wgmma_commit();
-  gaddpg::wgmma_wait<1>();  // the previous step's products are done
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    gaddpg::fence_reg(prev_hi[i]);
-    gaddpg::fence_reg(prev_lo[i]);
-  }
-  __syncwarp();
-  if (has_prev && lane == 0) gaddpg::mbar_arrive(&ring.empty_bar[(it - 1) % kStages]);
-  ++it;
-}
-
-// acc = the warpgroup's 64 rows (this warp's 16 at `rows`, stride as) @
-// the next `steps` k8 steps of the weight stream. `it` counts the
-// stream's steps across the block's whole walk.
-__device__ __forceinline__ void run_pass(PassAcc& acc, const float* rows, int as, int steps,
-                                         uint32_t& it, const Ring& ring, int lane) {
-#pragma unroll
-  for (int s = 0; s < kSub; ++s)
-#pragma unroll
-    for (int i = 0; i < 64; ++i) acc[s][i] = 0.0f;
-  Frag hi0, lo0, hi1, lo1;  // two fragments: one in flight, one loading
-  int k = 0;
-  for (; k + 1 < steps; k += 2) {
-    pass_step(acc, hi0, lo0, hi1, lo1, k > 0, rows, as, k, it, ring, lane);
-    pass_step(acc, hi1, lo1, hi0, lo0, true, rows, as, k + 1, it, ring, lane);
-  }
-  if (k < steps) pass_step(acc, hi0, lo0, hi1, lo1, k > 0, rows, as, k, it, ring, lane);
-  gaddpg::wgmma_wait<0>();
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    gaddpg::fence_reg(hi0[i]);
-    gaddpg::fence_reg(lo0[i]);
-    gaddpg::fence_reg(hi1[i]);
-    gaddpg::fence_reg(lo1[i]);
-  }
-#pragma unroll
-  for (int s = 0; s < kSub; ++s)
-#pragma unroll
-    for (int i = 0; i < 64; ++i) gaddpg::fence_reg(acc[s][i]);
-  __syncwarp();
-  if (lane == 0) gaddpg::mbar_arrive(&ring.empty_bar[(it - 1) % kStages]);
 }
 
 // relu(acc + bias) of the warp's 16 rows into `rows` (columns 0 .. kPass).
@@ -348,9 +236,7 @@ extern "C" int gaddpg_mlp_maxpool(const void* full, const void* wpack, const voi
   const size_t smem = smem_bytes(cin);
   cudaError_t err = gaddpg::allow_smem(mlp_maxpool_kernel, smem);
   if (err != cudaSuccess) return err;
-  int dev = 0, sms = 132;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  const int sms = gaddpg::sm_count();
   Args a;
   a.full = static_cast<const float*>(full);
   a.wpack = static_cast<const float*>(wpack);

@@ -33,7 +33,8 @@ __global__ void __launch_bounds__(kTileThreads, 2) sa_gather_mlp_kernel(
     const float* __restrict__ b3, float* __restrict__ out, int s, int n, int cin, int c1,
     int c2, int c3, int widest_out, int widest_act) {
   extern __shared__ float4 smem4[];
-  const TileSmem t = tile_smem(reinterpret_cast<float*>(smem4), widest_out, widest_act);
+  const bool passes = c3 > kMaxWidth;
+  const TileSmem t = tile_smem(reinterpret_cast<float*>(smem4), widest_out, widest_act, passes);
   const int total = list.start[groups];
   const int tiles = (total + kRowTile - 1) / kRowTile;
   for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
@@ -43,16 +44,21 @@ __global__ void __launch_bounds__(kTileThreads, 2) sa_gather_mlp_kernel(
     load_rows(list, row0, rows, t);
     gather_tile(rows, full, cpad, s, n, cin, t);
     TileAcc acc;
-    dense_tf32x3(t.act, cin, w1, c1, t.wbuf, acc);
+    dense_tf32x3(t.act, cin, w1, c1, c1, t.wbuf, acc);
     store_tile(acc, b1, c1, true, t.act);
-    dense_tf32x3(t.act, c1, w2, c2, t.wbuf, acc);
+    dense_tf32x3(t.act, c1, w2, c2, c2, t.wbuf, acc);
     store_tile(acc, b2, c2, true, t.act);
-    dense_tf32x3(t.act, c2, w3, c3, t.wbuf, acc);
-    store_tile(acc, b3, c3, true, t.act);
-    __syncthreads();
-    const int as = act_stride(c3);
-    const float* act = t.act;
-    pool_rows(rows, t.group, c3, out, [=](int r, int c) { return act[r * as + c]; });
+    // the last layer in column passes of up to kMaxWidth, each pooling its
+    // own columns; one pass writes over its input
+    for (int p0 = 0; p0 < c3; p0 += kMaxWidth) {
+      const int pw = min(kMaxWidth, c3 - p0);
+      dense_tf32x3(t.act, c2, w3 + p0, c3, pw, t.wbuf, acc);
+      store_tile(acc, b3 + p0, pw, true, t.out);
+      __syncthreads();
+      const int as = act_stride(pw);
+      const float* h = t.out;
+      pool_rows(rows, t.group, pw, c3, out + p0, [=](int r, int c) { return h[r * as + c]; });
+    }
   }
 }
 
@@ -63,14 +69,15 @@ __global__ void __launch_bounds__(kTileThreads, 2) sa_gather_mlp_kernel(
 // out (b, s, c3), zero on entry; rows an int32 scratch of
 // 2*b*s + 1 + 3*b*s*k ints (the compacted row list). All float32
 // contiguous. Returns cudaErrorInvalidValue for a layer width that is not
-// a multiple of 8 or above 256, or unaligned weights.
+// a multiple of 8, a hidden width (c1, c2) above 256, or unaligned
+// weights; c3 may be wider (column passes).
 extern "C" int gaddpg_sa_gather_mlp(const void* idx, const void* full, const void* cpad,
                                     const void* w1, const void* b1, const void* w2,
                                     const void* b2, const void* w3, const void* b3,
                                     void* out, void* rows, int b, int s, int k, int n,
                                     int cin, int c1, int c2, int c3, void* stream) {
-  for (const int c : {c1, c2, c3}) {
-    if (c % 8 || c > kMaxWidth) return cudaErrorInvalidValue;
+  if (c1 % 8 || c2 % 8 || c3 % 8 || c1 > kMaxWidth || c2 > kMaxWidth) {
+    return cudaErrorInvalidValue;
   }
   for (const void* w : {w1, w2, w3}) {
     if (reinterpret_cast<uintptr_t>(w) % 16) return cudaErrorInvalidValue;
@@ -80,9 +87,9 @@ extern "C" int gaddpg_sa_gather_mlp(const void* idx, const void* full, const voi
   const RowList list = row_list(rows, groups, k);
   cudaError_t err = compact_groups(static_cast<const int*>(idx), groups, k, list, st);
   if (err != cudaSuccess) return err;
-  const int widest_out = std::max({c1, c2, c3});
+  const int widest_out = std::max({c1, c2, std::min(c3, kMaxWidth)});
   const int widest_act = std::max(cin, widest_out);
-  const size_t smem = tile_smem_bytes(widest_out, widest_act);
+  const size_t smem = tile_smem_bytes(widest_out, widest_act, c3 > kMaxWidth);
   int grid = 0;
   err = tile_grid(sa_gather_mlp_kernel, smem, groups * k, &grid);
   if (err != cudaSuccess) return err;

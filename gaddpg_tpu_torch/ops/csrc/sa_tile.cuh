@@ -4,6 +4,13 @@
 // list, dense layers on the tensor cores in 3xTF32, and the pooled max
 // by segment.
 //
+// Widths. A tile's accumulators hold kMaxWidth = 256 output columns. The
+// hidden layers (and so every layer input but the first) are at most 256
+// wide, which the model's widths are at scale 1 and 2; a wider output (the
+// last layer's 512 at SA2, scale 2) runs as column passes of up to 256
+// over the same row tile, each into a buffer of its own (TileSmem::out),
+// so the layer's input stays in act for the next pass.
+//
 // Distinct slots. Ball query (K2) fills a group with its in-radius hits
 // in index order and pads the rest with the first hit, so at SA2 (128
 // slots over 32 points) most slots repeat slot 0. A slot whose index
@@ -33,7 +40,7 @@ namespace gaddpg {
 
 constexpr int kRowTile = 64;       // rows of the compacted list per tile
 constexpr int kTileThreads = 256;  // 8 warps: 2 row halves x 4 column stripes
-constexpr int kMaxWidth = 256;     // widest layer output a tile takes
+constexpr int kMaxWidth = 256;     // widest pass of a layer's output
 constexpr int kWeightChunk = 16;   // rows of w per cp.async stage
 constexpr int kWarpTiles = kMaxWidth / 8 / 4;  // 8-column mma tiles per warp
 
@@ -140,13 +147,6 @@ __global__ void fill_rows_kernel(const int* __restrict__ idx, int groups, int k,
   }
 }
 
-inline int sm_count() {
-  int dev = 0, sms = 132;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  return sms;
-}
-
 // Lays out `list` for idx (groups, k): three launches on `stream`.
 inline cudaError_t compact_groups(const int* idx, int groups, int k, const RowList& list,
                                   cudaStream_t stream) {
@@ -172,27 +172,34 @@ __host__ __device__ inline int act_stride(int c) { return pad8(c) + 4; }
 __host__ __device__ inline int weight_stride(int c) { return c % 16 == 8 ? c : c + 8; }
 
 // Dynamic shared memory of a tile block: the double-buffered weight
-// chunks of the widest output, the activation tile of the widest layer,
-// and the rows' groups, members and multiplicities.
-__host__ __device__ inline size_t tile_smem_bytes(int widest_out, int widest_act) {
+// chunks of the widest pass, the activation tile of the widest layer
+// input or pass, with `passes` an output buffer for a pass, and the rows'
+// groups, members and multiplicities.
+__host__ __device__ inline size_t tile_smem_bytes(int widest_out, int widest_act,
+                                                  bool passes = false) {
   return sizeof(float) * (2 * static_cast<size_t>(kWeightChunk) * weight_stride(widest_out) +
-                          static_cast<size_t>(kRowTile) * act_stride(widest_act)) +
+                          static_cast<size_t>(kRowTile) * act_stride(widest_act) +
+                          (passes ? static_cast<size_t>(kRowTile) * act_stride(kMaxWidth) : 0)) +
          3 * sizeof(int) * kRowTile;
 }
 
 struct TileSmem {
   float* wbuf;  // 2 x kWeightChunk x weight_stride(widest_out)
   float* act;   // kRowTile x act_stride(widest_act)
+  float* out;   // kRowTile x act_stride(kMaxWidth) with `passes`, else act
   int* group;   // kRowTile
   int* member;  // kRowTile
   int* mult;    // kRowTile
 };
 
-__device__ __forceinline__ TileSmem tile_smem(float* smem, int widest_out, int widest_act) {
+__device__ __forceinline__ TileSmem tile_smem(float* smem, int widest_out, int widest_act,
+                                              bool passes = false) {
   TileSmem t;
   t.wbuf = smem;
   t.act = smem + 2 * kWeightChunk * weight_stride(widest_out);
-  t.group = reinterpret_cast<int*>(t.act + kRowTile * act_stride(widest_act));
+  t.out = passes ? t.act + kRowTile * act_stride(widest_act) : t.act;
+  t.group = reinterpret_cast<int*>(t.out + kRowTile * act_stride(passes ? kMaxWidth
+                                                                         : widest_act));
   t.member = t.group + kRowTile;
   t.mult = t.member + kRowTile;
   return t;
@@ -314,10 +321,11 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending));
 }
 
-// Rows [chunk * kWeightChunk, +kWeightChunk) of w (cin x cout, row-major,
-// 16-byte aligned) into dst with cp.async; rows past cin are zero-filled.
-__device__ __forceinline__ void stage_weights(const float* __restrict__ w, int cin, int cout,
-                                              int chunk, float* dst) {
+// Rows [chunk * kWeightChunk, +kWeightChunk) of w (cin x cout, row stride
+// ldw, rows 16-byte aligned) into dst with cp.async; rows past cin are
+// zero-filled.
+__device__ __forceinline__ void stage_weights(const float* __restrict__ w, int ldw, int cin,
+                                              int cout, int chunk, float* dst) {
   const int quads = cout >> 2;
   const int ws = weight_stride(cout);
   for (int e = threadIdx.x; e < kWeightChunk * quads; e += blockDim.x) {
@@ -325,7 +333,7 @@ __device__ __forceinline__ void stage_weights(const float* __restrict__ w, int c
     const int q = e - r * quads;
     const int row = chunk * kWeightChunk + r;
     const bool live = row < cin;
-    const float* src = w + static_cast<size_t>(live ? row : 0) * cout + 4 * q;
+    const float* src = w + static_cast<size_t>(live ? row : 0) * ldw + 4 * q;
     const unsigned addr = static_cast<unsigned>(__cvta_generic_to_shared(dst + r * ws + 4 * q));
     asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(addr), "l"(src),
                  "r"(live ? 16 : 0));
@@ -339,15 +347,15 @@ __device__ __forceinline__ void stage_weights(const float* __restrict__ w, int c
 using TileAcc = float[2][kWarpTiles][4];
 
 // acc = act (kRowTile x cin, stride act_stride(cin), columns up to
-// pad8(cin) zero) @ w (cin x cout, cout a multiple of 8, at most
-// kMaxWidth), in 3xTF32: both operands split into TF32 hi + lo, and each
+// pad8(cin) zero) @ w (cin x cout, row stride ldw: a pass of columns of a
+// wider layer; cout a multiple of 8, at most kMaxWidth), in 3xTF32: both operands split into TF32 hi + lo, and each
 // product summed as lo*hi + hi*lo + hi*hi in fp32 (the lo*lo term,
 // 2^-22 relative, dropped). The weights stream through two shared-memory
 // chunks by cp.async, the next chunk in flight while the tensor cores run
 // on this one. Starts and ends with a block barrier, so the caller may
 // overwrite act once it returns.
 __device__ __forceinline__ void dense_tf32x3(const float* act, int cin,
-                                             const float* __restrict__ w, int cout,
+                                             const float* __restrict__ w, int ldw, int cout,
                                              float* wbuf, TileAcc& acc) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int wr = warp >> 2, wc = warp & 3;
@@ -364,10 +372,10 @@ __device__ __forceinline__ void dense_tf32x3(const float* act, int cin,
 #pragma unroll
       for (int i = 0; i < 4; ++i) acc[m][j][i] = 0.0f;
   __syncthreads();  // the previous user of wbuf is done, and act is written
-  stage_weights(w, cin, cout, 0, wbuf);
+  stage_weights(w, ldw, cin, cout, 0, wbuf);
   for (int ch = 0; ch < chunks; ++ch) {
     if (ch + 1 < chunks) {
-      stage_weights(w, cin, cout, ch + 1, wbuf + ((ch + 1) & 1) * kWeightChunk * ws);
+      stage_weights(w, ldw, cin, cout, ch + 1, wbuf + ((ch + 1) & 1) * kWeightChunk * ws);
       cp_async_wait<1>();
     } else {
       cp_async_wait<0>();
@@ -461,13 +469,14 @@ __device__ __forceinline__ void store_tile(const TileAcc& acc, const float* __re
 }
 
 // out[group][c] = max(out[group][c], max of column c over the tile's rows
-// of that group), for ReLU outputs v(r, c) >= 0: one thread per column
+// of that group), c < cout, out's rows ldo apart, for ReLU outputs v(r,
+// c) >= 0: one thread per column
 // walks the rows (sorted by group) and flushes each group's run with an
 // atomicMax on the int bits, which order like the non-negative floats;
 // out starts at zero, the identity of the max. Max does not depend on
 // the order, so two launches agree bit for bit.
 template <typename Value>
-__device__ __forceinline__ void pool_rows(int rows, const int* group, int cout,
+__device__ __forceinline__ void pool_rows(int rows, const int* group, int cout, int ldo,
                                           float* __restrict__ out, Value v) {
   for (int c = threadIdx.x; c < cout; c += blockDim.x) {
     int g = group[0];
@@ -475,14 +484,14 @@ __device__ __forceinline__ void pool_rows(int rows, const int* group, int cout,
     for (int r = 0; r < rows; ++r) {
       const int gr = group[r];
       if (gr != g) {
-        atomicMax(reinterpret_cast<int*>(out + static_cast<size_t>(g) * cout + c),
+        atomicMax(reinterpret_cast<int*>(out + static_cast<size_t>(g) * ldo + c),
                   __float_as_int(run));
         g = gr;
         run = 0.0f;
       }
       run = fmaxf(run, v(r, c));
     }
-    atomicMax(reinterpret_cast<int*>(out + static_cast<size_t>(g) * cout + c),
+    atomicMax(reinterpret_cast<int*>(out + static_cast<size_t>(g) * ldo + c),
               __float_as_int(run));
   }
 }

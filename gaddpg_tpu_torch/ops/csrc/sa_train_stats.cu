@@ -1,5 +1,5 @@
-// K5/K6: the train-mode set-abstraction levels, batch statistics and
-// pooled output.
+// K5: the train-mode grouped set-abstraction level, batch statistics and
+// pooled output (K6, the group-all level, is groupall_layer.cu).
 //
 // K5 replaces the Pallas kernel `sa_train_fused` (`_stats_kernel`,
 // `_forward_kernel`, `_run_stats` and `_pallas_sa_train_forward`,
@@ -24,14 +24,9 @@
 // same bits. The dense layers run on the tensor cores in 3xTF32. The
 // final pass applies the last affine and ReLU to z_3 and max-pools by
 // segment; there is no final forward.
-//
-// K6 replaces `groupall_train_fused` (`_groupall_stats_kernel` and
-// `_pallas_groupall_train`, :367-386, 399-427): the group-all level, all
-// N rows of a cloud, not centred, statistics over B*N rows. Each stats
-// pass `upto` (1, 2, 3) is one block per cloud that recomputes layers
-// 1..upto-1 with K3/K4's 8x4 register-tiled fp32 layer (common.cuh); at
-// N = 32 rows it is small. Its final forward is K4 (mlp_maxpool.cu) on
-// the Denses folded with the batch-stat affines, launched by the wrapper.
+// A layer wider than 256 (the last layer at SA2, scale 2: 512) runs in
+// column passes of 256 over the same row tile (sa_tile.cuh), each writing
+// its columns of z and of the partial sums.
 
 #include "sa_tile.cuh"
 #include "train_stats.cuh"
@@ -39,22 +34,6 @@
 namespace {
 
 using namespace gaddpg;
-
-// group-all blocks: at N = 32 rows and 256-wide layers, 256 threads make
-// 4 row groups of 8 rows, all busy; 512 would leave half of them idle
-constexpr int kGroupAllThreads = 256;
-
-__global__ void __launch_bounds__(kGroupAllThreads) groupall_train_stats_kernel(
-    const float* __restrict__ full, TrainMlp mlp, float* __restrict__ partial, int n,
-    int upto) {
-  extern __shared__ float smem[];
-  const int cin = mlp.width[0];
-  const float* table = full + static_cast<size_t>(blockIdx.x) * n * cin;
-  for (int e = threadIdx.x; e < n * cin; e += blockDim.x) smem[e] = table[e];
-  __syncthreads();
-  const int cout = mlp.width[upto];
-  mlp_stats(smem, n, mlp, upto, partial + static_cast<size_t>(blockIdx.x) * 2 * cout);
-}
 
 // K5 pass `layer` (1, 2, 3) over the compacted list: z = h @ w + b of
 // each row to zout (rows x cout) and the tile's sums of m*z and m*z^2 to
@@ -66,10 +45,12 @@ __global__ void __launch_bounds__(kTileThreads, 2) sa_train_layer_kernel(
     const float* __restrict__ w, const float* __restrict__ b, float* __restrict__ zout,
     float* __restrict__ partial, int s, int n, int cin, int cout, int layer) {
   extern __shared__ float4 smem4[];
-  const TileSmem t = tile_smem(reinterpret_cast<float*>(smem4), cout, max(cin, cout));
+  const bool passes = cout > kMaxWidth;
+  const int widest_out = min(cout, kMaxWidth);
+  const TileSmem t = tile_smem(reinterpret_cast<float*>(smem4), widest_out,
+                               max(cin, widest_out), passes);
   const int total = list.start[groups];
   const int tiles = (total + kRowTile - 1) / kRowTile;
-  const int as = act_stride(cout);
   for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
     const int row0 = tile * kRowTile;
     const int rows = min(kRowTile, total - row0);
@@ -80,22 +61,27 @@ __global__ void __launch_bounds__(kTileThreads, 2) sa_train_layer_kernel(
     } else {
       affine_tile(zin, a, c, row0, rows, cin, t);
     }
-    TileAcc acc;
-    dense_tf32x3(t.act, cin, w, cout, t.wbuf, acc);
-    store_tile(acc, b, cout, false, t.act);
-    __syncthreads();
     float* part = partial + static_cast<size_t>(tile) * 2 * cout;
-    for (int col = threadIdx.x; col < cout; col += blockDim.x) {
-      float sum = 0.0f, sq = 0.0f;
-      for (int r = 0; r < rows; ++r) {
-        const float z = t.act[r * as + col];
-        const float mz = static_cast<float>(t.mult[r]) * z;
-        sum += mz;
-        sq = fmaf(mz, z, sq);
-        zout[static_cast<size_t>(row0 + r) * cout + col] = z;
+    // column passes of up to kMaxWidth; one pass writes over its input
+    for (int p0 = 0; p0 < cout; p0 += kMaxWidth) {
+      const int pw = min(kMaxWidth, cout - p0);
+      const int as = act_stride(pw);
+      TileAcc acc;
+      dense_tf32x3(t.act, cin, w + p0, cout, pw, t.wbuf, acc);
+      store_tile(acc, b + p0, pw, false, t.out);
+      __syncthreads();
+      for (int col = threadIdx.x; col < pw; col += blockDim.x) {
+        float sum = 0.0f, sq = 0.0f;
+        for (int r = 0; r < rows; ++r) {
+          const float z = t.out[r * as + col];
+          const float mz = static_cast<float>(t.mult[r]) * z;
+          sum += mz;
+          sq = fmaf(mz, z, sq);
+          zout[static_cast<size_t>(row0 + r) * cout + p0 + col] = z;
+        }
+        part[p0 + col] = sum;
+        part[cout + p0 + col] = sq;
       }
-      part[col] = sum;
-      part[cout + col] = sq;
     }
   }
 }
@@ -119,7 +105,8 @@ __global__ void __launch_bounds__(kTileThreads) sa_train_pool_kernel(
     load_rows(list, row0, rows, t);
     affine_tile(z, a, c, row0, rows, cout, t);
     __syncthreads();
-    pool_rows(rows, t.group, cout, out, [=](int r, int col) { return act[r * as + col]; });
+    pool_rows(rows, t.group, cout, cout, out,
+              [=](int r, int col) { return act[r * as + col]; });
   }
 }
 
@@ -132,16 +119,19 @@ __global__ void __launch_bounds__(kTileThreads) sa_train_pool_kernel(
 // scratch of b*s*k*cout floats; partial a scratch of
 // ceil(b*s*k / 64) * 2 * cout floats; rows the int32 row-list scratch of
 // 2*b*s + 1 + 3*b*s*k ints, laid out by the layer-1 pass and read by the
-// later ones; mean, var (cout,) the outputs, over all b*s*k slots. All
-// float32 contiguous. Returns cudaErrorInvalidValue for a width that is
-// not a multiple of 8 or above 256, or unaligned weights.
+// later ones; mean, var (cout,) the outputs, over all b*s*k slots, and
+// ga, gc (cout,) their BatchNorm affine for the BatchNorm's bn_scale,
+// bn_bias (cout,). All float32 contiguous. Returns cudaErrorInvalidValue for a width that is
+// not a multiple of 8, an input (layers 2, 3) wider than 256, or
+// unaligned weights; cout may be wider (column passes).
 extern "C" int gaddpg_sa_train_layer(const void* idx, const void* full, const void* cpad,
                                      const void* zin, const void* a, const void* c,
                                      const void* w, const void* b, void* zout, void* partial,
-                                     void* rows, void* mean, void* var, int batch, int s,
+                                     void* rows, void* mean, void* var, const void* bn_scale,
+                                     const void* bn_bias, void* ga, void* gc, int batch, int s,
                                      int k, int n, int cin, int cout, int layer, void* stream) {
-  if (layer < 1 || layer > 3 || cout % 8 || cout > kMaxWidth ||
-      (layer > 1 && cin % 8) || reinterpret_cast<uintptr_t>(w) % 16) {
+  if (layer < 1 || layer > 3 || cout % 8 || (layer > 1 && (cin % 8 || cin > kMaxWidth)) ||
+      reinterpret_cast<uintptr_t>(w) % 16) {
     return cudaErrorInvalidValue;
   }
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -152,7 +142,8 @@ extern "C" int gaddpg_sa_train_layer(const void* idx, const void* full, const vo
     err = compact_groups(static_cast<const int*>(idx), groups, k, list, st);
     if (err != cudaSuccess) return err;
   }
-  const size_t smem = tile_smem_bytes(cout, std::max(cin, cout));
+  const int widest_out = std::min(cout, kMaxWidth);
+  const size_t smem = tile_smem_bytes(widest_out, std::max(cin, widest_out), cout > kMaxWidth);
   int grid = 0;
   err = tile_grid(sa_train_layer_kernel, smem, groups * k, &grid);
   if (err != cudaSuccess) return err;
@@ -164,9 +155,11 @@ extern "C" int gaddpg_sa_train_layer(const void* idx, const void* full, const vo
       s, n, cin, cout, layer);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
+  const BnAffine bn{static_cast<const float*>(bn_scale), static_cast<const float*>(bn_bias),
+                    static_cast<float*>(ga), static_cast<float*>(gc)};
   return launch_reduce_stats(static_cast<const float*>(partial), 0, list.start + groups,
                              kRowTile, cout, static_cast<double>(groups) * k,
-                             static_cast<float*>(mean), static_cast<float*>(var), st);
+                             static_cast<float*>(mean), static_cast<float*>(var), bn, st);
 }
 
 // K5's final pass: z (rows, cout) the layer-3 pass's z, a, c (cout,) its
@@ -185,39 +178,4 @@ extern "C" int gaddpg_sa_train_pool(const void* rows, const void* z, const void*
       list, groups, static_cast<const float*>(z), static_cast<const float*>(a),
       static_cast<const float*>(c), static_cast<float*>(out), cout);
   return cudaGetLastError();
-}
-
-// K6 stats pass `upto` of a group-all level. full (b, n, cin); w_i
-// (c_{i-1}, c_i) row-major, 16-byte aligned, and b_i (c_i,) the raw Dense
-// parameters; g_i, o_i (c_i,) the BatchNorm affine of layer i (read for
-// i < upto, may be null otherwise); partial (b, 2, c_upto) scratch; mean,
-// var (c_upto,) the outputs. All float32 contiguous. Returns
-// cudaErrorInvalidValue for a layer width that is not a multiple of 4,
-// unaligned weights, or (from allow_smem) a tile that does not fit in
-// shared memory.
-extern "C" int gaddpg_groupall_train_stats(
-    const void* full, const void* w1, const void* b1, const void* g1, const void* o1,
-    const void* w2, const void* b2, const void* g2, const void* o2, const void* w3,
-    const void* b3, void* partial, void* mean, void* var, int b, int n, int cin, int c1,
-    int c2, int c3, int upto, void* stream) {
-  if (upto < 1 || upto > 3) return cudaErrorInvalidValue;
-  for (const int c : {c1, c2, c3}) {
-    if (c % kTileCols) return cudaErrorInvalidValue;
-  }
-  for (const void* w : {w1, w2, w3}) {
-    if (reinterpret_cast<uintptr_t>(w) % 16) return cudaErrorInvalidValue;
-  }
-  const TrainMlp mlp = train_mlp(w1, b1, g1, o1, w2, b2, g2, o2, w3, b3, cin, c1, c2, c3);
-  const size_t smem =
-      stats_smem_floats(n, mlp.width, upto, kGroupAllThreads) * sizeof(float);
-  cudaError_t err = allow_smem(groupall_train_stats_kernel, smem);
-  if (err != cudaSuccess) return err;
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  groupall_train_stats_kernel<<<b, kGroupAllThreads, smem, st>>>(
-      static_cast<const float*>(full), mlp, static_cast<float*>(partial), n, upto);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  return launch_reduce_stats(static_cast<const float*>(partial), b, nullptr, 1,
-                             mlp.width[upto], static_cast<double>(b) * n,
-                             static_cast<float*>(mean), static_cast<float*>(var), st);
 }

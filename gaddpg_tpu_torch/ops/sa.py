@@ -10,7 +10,9 @@ level becomes gather -> 3x (Dense + ReLU) -> max-pool:
   (`distinct_slots`), which give the same pooled max.
 - `mlp_maxpool` (K4, `csrc/mlp_maxpool.cu`): the group-all level, on
   wgmma in 3xTF32 with the weights split once per call (`tf32_split`,
-  `k4_weight_pack`).
+  `k4_weight_pack`); widths its fused tile cannot hold (`k4_fused_takes`)
+  run on K6's layer engine (`groupall_engine`, `csrc/groupall_layer.cu`),
+  one launch per layer.
 
 Weights are `((w1, b1), (w2, b2), (w3, b3))` with w_i of shape
 (C_{i-1}, C_i), the Flax kernel layout. A CPU tensor runs the plain
@@ -114,16 +116,22 @@ def _check_widths(name, weights, cin):
     return widths[1:]
 
 
+TILE_WIDTH = 256  # output columns of a row tile's accumulators (csrc/sa_tile.cuh kMaxWidth)
+
+
 def check_tile_widths(name, weights):
     """What the row-tile kernels (K3, K5) need beyond the plain version:
-    every layer width a multiple of 8 up to 256 (one tile's accumulators
-    on the tensor cores), and weights that cp.async can read as 16-byte
-    rows."""
-    for w in weights:
-        if w.shape[1] % 8 or w.shape[1] > 256 or w.data_ptr() % 16:
+    every layer width a multiple of 8, the hidden widths (the inputs of
+    layers 2 and 3) up to TILE_WIDTH, one tile's accumulators on the
+    tensor cores, while the last layer may be wider (column passes of
+    TILE_WIDTH over the same tile); and weights that cp.async can read as
+    16-byte rows."""
+    for i, w in enumerate(weights):
+        hidden = i < len(weights) - 1
+        if w.shape[1] % 8 or (hidden and w.shape[1] > TILE_WIDTH) or w.data_ptr() % 16:
             raise ValueError(
-                f"{name}: layer width {w.shape[1]} must be a multiple of 8 up to 256 "
-                "and its weights 16-byte aligned"
+                f"{name}: layer width {w.shape[1]} must be a multiple of 8, a hidden "
+                f"width at most {TILE_WIDTH}, and its weights 16-byte aligned"
             )
 
 
@@ -141,21 +149,29 @@ def _pad8(c):
     return (c + 7) // 8 * 8
 
 
-def _check_kernel_layout(name, cin, c1, c2, c3):
-    """What the K4 kernel takes beyond the plain version: hidden widths
-    of 256, an output width that is a multiple of 256, and an input width
-    whose tile fits in shared memory (up to K4_MAX_IN). Raises ValueError
-    otherwise."""
+def k4_fused_takes(cin, c1, c2, c3):
+    """The width test of `mlp_maxpool` on the card: whether the fused K4
+    kernel's tile holds these widths, i.e. hidden widths of 256, an output
+    width that is a multiple of 256, and an input width whose tile fits in
+    shared memory (up to K4_MAX_IN). SA3 at scale 1 passes; any other
+    widths run on the layer engine, which takes any width but pays each
+    layer's output through device memory (chip_smoke.py times both on
+    SA3 at scale 1)."""
     if c1 != K4_HIDDEN or c2 != K4_HIDDEN or c3 % K4_PASS or not 1 <= cin <= K4_MAX_IN:
-        raise ValueError(
-            f"{name}: the kernel takes widths C_in <= {K4_MAX_IN} -> {K4_HIDDEN} -> "
-            f"{K4_HIDDEN} -> a multiple of {K4_PASS}; got {cin} -> {c1} -> {c2} -> {c3}"
-        )
+        return False
     stride = _pad8(max(cin, K4_HIDDEN)) + 4
     smem = 4 * (K4_STAGES * 2 * K4_PASS * 8 + K4_BLOCK_ROWS * stride) + 16 * K4_STAGES
-    if smem > build.MAX_SMEM_BYTES:
-        raise ValueError(f"{name}: {smem} bytes of shared memory, more than "
-                         f"{build.MAX_SMEM_BYTES}")
+    return smem <= build.MAX_SMEM_BYTES
+
+
+def _check_kernel_layout(name, cin, c1, c2, c3):
+    """Raises ValueError for widths the fused K4 kernel does not take
+    (`k4_fused_takes`)."""
+    if not k4_fused_takes(cin, c1, c2, c3):
+        raise ValueError(
+            f"{name}: the fused kernel takes widths C_in <= {K4_MAX_IN} -> {K4_HIDDEN} -> "
+            f"{K4_HIDDEN} -> a multiple of {K4_PASS}; got {cin} -> {c1} -> {c2} -> {c3}"
+        )
 
 
 def tf32_split(x):
@@ -175,28 +191,127 @@ def tf32_split(x):
     return hi, lo
 
 
+def layer_weight_pack_reference(w):
+    """The weight stream of one layer w (C_in, C_out) for the wgmma
+    kernels, (steps, 2, 2048) float32: for each 256-column pass (C_out
+    padded to a multiple of 256 with zero columns) and each k8 step of the
+    input width (padded to a multiple of 8 with zero rows), the TF32 hi
+    part and then the lo part (`tf32_split`) of the (256 columns x 8
+    inputs) block of w, in the order the kernels consume them. A block is
+    laid out K-major in wgmma's core matrices: the step's two halves of 4
+    inputs, each (256, 4) row-major, i.e. block[h, c, q] = w[8 step + 4 h
+    + q, 256 pass + c]."""
+    cin, cout = w.shape
+    kpad, cpad = _pad8(cin), -(-cout // K4_PASS) * K4_PASS
+    wp = torch.nn.functional.pad(w, (0, cpad - cout, 0, kpad - cin))
+    # (step, half, q, pass, c) -> (pass, step, half, c, q)
+    steps = (wp.reshape(kpad // 8, 2, 4, cpad // K4_PASS, K4_PASS)
+             .permute(3, 0, 1, 4, 2).reshape(-1, 8 * K4_PASS))
+    hi, lo = tf32_split(steps)
+    return torch.stack((hi, lo), dim=1)
+
+
+def _pack_steps(cin, cout):
+    return -(-cout // K4_PASS) * (_pad8(cin) // 8)
+
+
+def layer_weight_pack(w, out=None):
+    """`layer_weight_pack_reference` of w: on a CPU tensor that function,
+    on a CUDA tensor the pack kernel (csrc/groupall_layer.cu), written
+    into `out` when given (a contiguous (steps, 2, 2048) float32 slice)."""
+    if w.device.type == "cpu":
+        return layer_weight_pack_reference(w)
+    cin, cout = w.shape
+    if out is None:
+        out = torch.empty((_pack_steps(cin, cout), 2, 8 * K4_PASS), dtype=torch.float32,
+                          device=w.device)
+    build.launch("weight_pack", w.device, w.contiguous().data_ptr(), cin, cout, out.data_ptr())
+    return out
+
+
 def k4_weight_pack(weights):
-    """The weight stream of the K4 kernel, (steps, 2, 2048) float32: for
-    each layer, each 256-column pass and each k8 step of the input width
-    (padded to a multiple of 8 with zero rows), the TF32 hi part and then
-    the lo part (`tf32_split`) of the (256 columns x 8 inputs) block of w,
-    in the order the kernel consumes them. A block is laid out K-major in
-    wgmma's core matrices: the step's two halves of 4 inputs, each (256,
-    4) row-major, i.e. block[h, c, q] = w[8 step + 4 h + q, 256 pass + c].
-    Raises ValueError on widths the kernel does not take
-    (`_check_kernel_layout`)."""
+    """The weight stream of the fused K4 kernel: the three layers'
+    `layer_weight_pack` streams in order. Raises ValueError on widths the
+    fused kernel does not take (`k4_fused_takes`)."""
     widths = [w.shape for w, _ in weights]
     _check_kernel_layout("mlp_maxpool", widths[0][0], *(c for _, c in widths))
-    steps = []
-    for w, _ in weights:
-        cin, cout = w.shape
-        kpad = _pad8(cin)
-        wp = torch.nn.functional.pad(w, (0, 0, 0, kpad - cin))
-        # (step, half, q, pass, c) -> (pass, step, half, c, q)
-        steps.append(wp.reshape(kpad // 8, 2, 4, cout // K4_PASS, K4_PASS)
-                     .permute(3, 0, 1, 4, 2).reshape(-1, 8 * K4_PASS))
-    hi, lo = tf32_split(torch.cat(steps))
-    return torch.stack((hi, lo), dim=1)
+    if weights[0][0].device.type == "cpu":
+        return torch.cat([layer_weight_pack_reference(w) for w, _ in weights])
+    steps = [_pack_steps(*w.shape) for w, _ in weights]
+    out = torch.empty((sum(steps), 2, 8 * K4_PASS), dtype=torch.float32,
+                      device=weights[0][0].device)
+    for (w, _), part in zip(weights, out.split(steps)):
+        layer_weight_pack(w, part)
+    return out
+
+
+ENGINE_ROWS = 128  # rows of a layer-engine block, one partial sum each (csrc/groupall_layer.cu)
+
+
+def _ptr(t):
+    return 0 if t is None else t.data_ptr()
+
+
+def _engine_layer(x, w, bias, z, relu=False, affine=None, bn=None):
+    """One layer of the group-all layer engine (csrc/groupall_layer.cu)
+    over the rows of x (..., C_in): z (rows, C_out) = h @ w + bias, h = x,
+    or with `relu` h = relu(x * a + c) for affine (a, c), relu(x) for
+    affine None. With `bn`, the BatchNorm's (scale, bias), returns z's
+    (mean, var) over the rows and their BatchNorm affine (a, c)
+    (ops/sa_train.py `bn_affine`), else None."""
+    cin, cout = w.shape
+    rows = x.numel() // cin
+    dev = x.device
+    pack = layer_weight_pack(w)
+    a, c = affine if affine is not None else (None, None)
+    partial = mean = var = a_next = c_next = None
+    if bn is not None:
+        partial = torch.empty((-(-rows // ENGINE_ROWS), 2, cout), dtype=torch.float32, device=dev)
+        mean, var, a_next, c_next = (torch.empty(cout, dtype=torch.float32, device=dev)
+                                     for _ in range(4))
+    build.launch("groupall_layer", dev, x.data_ptr(), _ptr(a), _ptr(c), pack.data_ptr(),
+                 bias.data_ptr(), z.data_ptr(), *(_ptr(t) for t in (partial, mean, var)),
+                 *(_ptr(t) for t in (bn or (None, None))), _ptr(a_next), _ptr(c_next),
+                 rows, cin, cout, int(relu))
+    return None if bn is None else (mean, var, (a_next, c_next))
+
+
+def _engine_pool(z, affine, b, n):
+    """(B, 1, C) max over each cloud's n rows of relu(z * a + c) for z
+    (B * n, C) and affine (a, c), of relu(z) for affine None
+    (csrc/groupall_layer.cu)."""
+    cout = z.shape[-1]
+    out = torch.empty((b, 1, cout), dtype=torch.float32, device=z.device)
+    a, c = affine if affine is not None else (None, None)
+    build.launch("groupall_pool", z.device, z.data_ptr(), _ptr(a), _ptr(c),
+                 out.data_ptr(), b, n, cout)
+    return out
+
+
+def groupall_engine(full, weights, norms=None):
+    """The layer engine over every row of full (B, N, C_in): the layers
+    ((w, b),) * 3 one launch each, z_1 and z_3 in one scratch buffer and
+    z_2 in another (layer i reads z_{i-1}), then the pool. With `norms`,
+    the BatchNorms' ((scale, bias),) * 3, each layer's batch statistics
+    and their affine feed the next layer and the pool (K6); without, no
+    affine: layers 2 and 3 and the pool take relu(z) (K4's wide widths).
+    Returns pooled (B, 1, C3) and ((mean, var),) * 3 (empty without
+    norms)."""
+    b, n, _ = full.shape
+    dev = full.device
+    widths = [w.shape[1] for w, _ in weights]
+    bufs = (torch.empty(b * n * max(widths[0], widths[2]), dtype=torch.float32, device=dev),
+            torch.empty(b * n * widths[1], dtype=torch.float32, device=dev))
+    x, affine, stats = full, None, []
+    for i, (w, bias) in enumerate(weights):
+        z = bufs[i % 2][:b * n * w.shape[1]]
+        out = _engine_layer(x, w, bias, z, relu=i > 0, affine=affine,
+                            bn=None if norms is None else norms[i])
+        if out is not None:
+            mean, var, affine = out
+            stats.append((mean, var))
+        x = z
+    return _engine_pool(x.view(b * n, -1), affine, b, n), tuple(stats)
 
 
 def sa_gather_mlp(group_idx, full, center_pad, weights):
@@ -242,9 +357,11 @@ def mlp_maxpool(full, weights):
     """Fused eval group-all SA: full (B, N, C_in) float32 -> 3x (folded
     Dense + ReLU) -> max over N -> (B, 1, C3).
 
-    CPU tensor: `mlp_maxpool_reference`. CUDA tensor: the K4 kernel on
-    the weights split and laid out by `k4_weight_pack` (widths as
-    `_check_kernel_layout` states)."""
+    CPU tensor: `mlp_maxpool_reference`. CUDA tensor, by the width test
+    `k4_fused_takes` (SA3 at scale 1 passes it): the fused K4 kernel on
+    the weights split and laid out by `k4_weight_pack`; at any other widths
+    K6's layer engine with no statistics (`groupall_engine`). Both count
+    in `launches`."""
     if full.dtype != torch.float32 or full.dim() != 3:
         raise ValueError(f"mlp_maxpool: full {full.dtype} {tuple(full.shape)}")
     b, n, cin = full.shape
@@ -253,12 +370,15 @@ def mlp_maxpool(full, weights):
                               *(t for layer in weights for t in layer))
     if dev.type == "cpu":
         return mlp_maxpool_reference(full, weights)
-    wpack = k4_weight_pack(weights)
-    out = torch.zeros((b, 1, c3), dtype=torch.float32, device=dev)
-    build.launch(
-        "mlp_maxpool", dev, full.data_ptr(), wpack.data_ptr(),
-        *(bias.data_ptr() for _, bias in weights), out.data_ptr(), b, n, cin, c3,
-    )
+    if k4_fused_takes(cin, c1, c2, c3):
+        wpack = k4_weight_pack(weights)
+        out = torch.zeros((b, 1, c3), dtype=torch.float32, device=dev)
+        build.launch(
+            "mlp_maxpool", dev, full.data_ptr(), wpack.data_ptr(),
+            *(bias.data_ptr() for _, bias in weights), out.data_ptr(), b, n, cin, c3,
+        )
+    else:
+        out = groupall_engine(full, weights)[0]
     mlp_maxpool.launches += 1
     return out
 

@@ -19,10 +19,13 @@ with var = E[z^2] - mean^2 unclamped, as the JAX kernels compute it.
   weighted by the slots each row stands for, then a pooling pass. The
   JAX kernel recomputes layers 1..i-1 in pass i and all three in a final
   forward; this one computes each layer once.
-- `groupall_train_fused` (group-all level; K6, the same source): three
-  stats passes over every row of a cloud, recomputing the earlier
-  layers, then the eval kernel K4 on the Denses folded with the three
-  batch-stat affines.
+- `groupall_train_fused` (group-all level; K6, `csrc/groupall_layer.cu`
+  on wgmma): one launch per layer over all B * N rows as a row-tiled
+  GEMM, each writing z_i to scratch and its tiles' partial sums, a
+  reduction of those into the statistics, the next layer reading z_i
+  through its affine and ReLU, then a pooling pass. The JAX kernel
+  recomputes layers 1..i-1 in stats pass i and all three in a final
+  forward; this one computes each layer once, with no final forward.
 
 Each is a `torch.autograd.Function`. Its backward is the JAX package's
 rule: it keeps only the inputs and differentiates the plain version
@@ -30,7 +33,7 @@ rule: it keeps only the inputs and differentiates the plain version
 autograd. Each returns pooled plus ((mean, var),) * 3, the statistics
 detached. A CPU tensor runs the plain version forward, a CUDA tensor the
 kernels or raises. `launches` counts the calls that launched the
-kernels; K6's final forward counts in K4's own counter.
+kernels.
 
 Dense layers are ((w, b, scale, bias),) * 3 with w of shape (C_in, C_out),
 the Flax kernel layout, and scale / bias the BatchNorm's parameters.
@@ -39,7 +42,9 @@ the Flax kernel layout, and scale / bias the BatchNorm's parameters.
 import torch
 
 from gaddpg_tpu_torch.ops import build
-from gaddpg_tpu_torch.ops.sa import _check_widths, check_tile_widths, mlp_maxpool, row_list_ints
+from gaddpg_tpu_torch.ops.sa import (
+    _check_widths, check_tile_widths, groupall_engine, row_list_ints,
+)
 
 BN_EPS = 1e-5
 ROW_TILE = 64  # rows of K5's tiles (csrc/sa_tile.cuh kRowTile): one partial sum each
@@ -103,40 +108,6 @@ def _check_dense(name, dense, cin):
             raise ValueError(f"{name}: BatchNorm scale/bias must be float32 of shape ({c},)")
 
 
-def _groupall_stats_passes(full, dense):
-    """Launch the three K6 stats passes over every row of `full` (B, N,
-    C_in) -> ((mean, var),) * 3 and the affines. The C entry rejects
-    widths and tiles the kernel cannot take."""
-    b, n, cin = full.shape
-    dev = full.device
-    stats, affine = [], []
-    for upto in (1, 2, 3):
-        cout = dense[upto - 1][0].shape[1]
-        partial = torch.empty((b, 2, cout), dtype=torch.float32, device=dev)
-        mean = torch.empty(cout, dtype=torch.float32, device=dev)
-        var = torch.empty(cout, dtype=torch.float32, device=dev)
-        ptrs = []
-        for i, (w, w_bias, _, _) in enumerate(dense):
-            ptrs += [w.data_ptr(), w_bias.data_ptr()]
-            if i < 2:
-                a, c = affine[i] if i < upto - 1 else (None, None)
-                ptrs += [0 if a is None else a.data_ptr(), 0 if c is None else c.data_ptr()]
-        build.launch("groupall_train_stats", dev, full.data_ptr(), *ptrs, partial.data_ptr(),
-                     mean.data_ptr(), var.data_ptr(), b, n, cin,
-                     *(w.shape[1] for w, _, _, _ in dense), upto)
-        _, _, scale, bias = dense[upto - 1]
-        affine.append(bn_affine(mean, var, scale, bias))
-        stats.append((mean, var))
-    return tuple(stats), affine
-
-
-def _folded(dense, affine):
-    """The eval kernels' weights for the batch-stat affines:
-    relu((h @ w + b) * a + c) = relu(h @ (w * a) + (b * a + c))."""
-    return tuple(((w * a[None, :]).contiguous(), b * a + c)
-                 for (w, b, _, _), (a, c) in zip(dense, affine))
-
-
 def _sa_train_kernels(group_idx, full, cpad, dense):
     """K5: the compacted row list (laid out by the layer-1 pass), one
     pass per layer and the pooling pass. Scratch is sized for every slot,
@@ -157,14 +128,15 @@ def _sa_train_kernels(group_idx, full, cpad, dense):
         cout = widths[layer]
         zout = zbuf[(layer - 1) % 2]
         partial = torch.empty((tiles, 2, cout), dtype=torch.float32, device=dev)
-        mean = torch.empty(cout, dtype=torch.float32, device=dev)
-        var = torch.empty(cout, dtype=torch.float32, device=dev)
+        mean, var, a_next, c_next = (torch.empty(cout, dtype=torch.float32, device=dev)
+                                     for _ in range(4))
         build.launch("sa_train_layer", dev, group_idx.data_ptr(), full.data_ptr(),
                      cpad.data_ptr(), *(0 if t is None else t.data_ptr() for t in (zin, a, c)),
                      w.data_ptr(), w_bias.data_ptr(), zout.data_ptr(), partial.data_ptr(),
-                     rows.data_ptr(), mean.data_ptr(), var.data_ptr(), b, s, k, n,
+                     rows.data_ptr(), mean.data_ptr(), var.data_ptr(), scale.data_ptr(),
+                     bias.data_ptr(), a_next.data_ptr(), c_next.data_ptr(), b, s, k, n,
                      widths[layer - 1], cout, layer)
-        a, c = bn_affine(mean, var, scale, bias)
+        a, c = a_next, c_next  # bn_affine of (mean, var), from the reduction
         stats.append((mean, var))
         zin = zout
     pooled = torch.zeros((b, s, widths[3]), dtype=torch.float32, device=dev)
@@ -175,9 +147,13 @@ def _sa_train_kernels(group_idx, full, cpad, dense):
 
 
 def _groupall_train_kernels(full, dense):
-    stats, affine = _groupall_stats_passes(full, dense)
+    """K6: one layer-engine launch per layer over the B * N rows, each
+    with its statistics and their BatchNorm affine (the reduction's), the
+    next reading z back through that affine; then the pooling pass."""
+    pooled, stats = groupall_engine(full, [(w, b) for w, b, _, _ in dense],
+                                    [(scale, bias) for _, _, scale, bias in dense])
     groupall_train_fused.launches += 1
-    return mlp_maxpool(full, _folded(dense, affine)), stats
+    return pooled, stats
 
 
 # profiler range around every backward recompute, so that a trace can
@@ -279,7 +255,7 @@ def groupall_train_fused(full, dense):
     ((mean, var),) * 3.
 
     Differentiable in full and the 12 parameters. CPU tensors: the plain
-    version. CUDA tensors: the K6 stats passes, then K4."""
+    version. CUDA tensors: the K6 layer engine, any widths."""
     if full.dtype != torch.float32 or full.dim() != 3:
         raise ValueError(f"groupall_train_fused: full {full.dtype} {tuple(full.shape)}")
     _check_dense("groupall_train_fused", dense, full.shape[-1])

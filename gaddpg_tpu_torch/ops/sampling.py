@@ -63,7 +63,9 @@ def fps_reference(xyz: torch.Tensor, npoint: int) -> torch.Tensor:
 def furthest_point_sampling(xyz: torch.Tensor, npoint: int) -> torch.Tensor:
     """FPS indices (B, npoint) int32 for xyz (B, N, 3) float32.
 
-    CPU tensor: `fps_reference`. CUDA tensor: the K1 kernel."""
+    CPU tensor: `fps_reference`. CUDA tensor: the K1 kernel, one warp per
+    cloud holding the cloud in shared memory at 16 bytes a point, so N is
+    bounded by one block's shared memory (14,528 points)."""
     _check_points("xyz", xyz)
     b, n, _ = xyz.shape
     if n < 1 or npoint < 1:

@@ -1,18 +1,21 @@
-"""The layouts the K4 wrapper (ops/sa.py `mlp_maxpool`) builds for its
-wgmma kernel, checked on the CPU: the TF32 hi/lo split of the weights
-(`tf32_split`), the weight stream (`k4_weight_pack`) and the widths the
-kernel takes (`_check_kernel_layout`). The kernel itself runs only on the
-card (chip_smoke.py holds it against `mlp_maxpool_reference`); here a
-float64 walk over the stream in the kernel's order stands in for it.
+"""The layouts the wgmma wrappers (ops/sa.py `mlp_maxpool`, K4, and the
+layer engine of K6, `groupall_layer`) build for their kernels, checked on
+the CPU: the TF32 hi/lo split of the weights (`tf32_split`), the weight
+streams (`k4_weight_pack`, `layer_weight_pack`), the widths each kernel
+takes (`k4_fused_takes`, `check_tile_widths`). The kernels themselves run
+only on the card (chip_smoke.py holds them against `mlp_maxpool_reference`
+and `groupall_train_reference`); here float64 walks over the streams in
+the kernels' order stand in for them.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from gaddpg_tpu_torch.ops import sa
+from gaddpg_tpu_torch.ops import sa, sa_train
 
 SA3 = (259, (256, 256, 512))
+SA3_SCALE2 = (515, (512, 512, 1024))
 
 
 def _weights(rng, cin, dims):
@@ -149,26 +152,137 @@ def test_k4_stream_walk_matches_reference(b, n):
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
 
 
-@pytest.mark.parametrize("cin,dims", [
-    (11, (16, 16, 24)),        # tests/test_torch_sa.py's small K4 widths
-    (7, (64, 64, 128)),        # SA1 widths
-    (131, (128, 128, 256)),    # SA2 widths
-    (259, (256, 256, 384)),    # an output that is not a multiple of 256
-    (300, (256, 256, 512)),    # an input tile wider than shared memory holds
+@pytest.mark.parametrize("cin,dims,fused", [
+    (1, (256, 256, 512), True),    # SA3's hidden widths, the narrowest input
+    (259, (256, 256, 512), True),  # SA3 at scale 1
+    (sa.K4_MAX_IN, (256, 256, 512), True),  # the widest input the fused tile holds
+    (259, (256, 256, 256), True),
+    (11, (16, 16, 24), False),     # tests/test_torch_sa.py's small K4 widths
+    (7, (64, 64, 128), False),     # SA1 widths
+    (131, (128, 128, 256), False),  # SA2 widths
+    (259, (256, 256, 384), False),  # an output that is not a multiple of 256
+    (300, (256, 256, 512), False),  # an input tile wider than the fused kernel holds
+    (*SA3_SCALE2, False),          # SA3 at scale 2
 ])
-def test_k4_widths_the_kernel_does_not_take_raise(cin, dims):
-    """Widths the kernel cannot take raise in `_check_kernel_layout` (via
-    `k4_weight_pack`, on CPU tensors), while the wrapper still runs the
-    plain version on the CPU."""
+def test_k4_widths_the_kernel_takes(cin, dims, fused):
+    """Every width takes a kernel on the card, by the wrapper's width test
+    `k4_fused_takes`: the fused kernel (its stream `k4_weight_pack`) for
+    SA3's hidden widths, else the layer engine, whose per-layer streams
+    (`layer_weight_pack`) take any width, while `k4_weight_pack` raises
+    there. On CPU tensors the wrapper runs the plain version."""
     weights = _weights(np.random.RandomState(3), cin, dims)
-    with pytest.raises(ValueError, match="mlp_maxpool"):
-        sa.k4_weight_pack(weights)
+    assert sa.k4_fused_takes(cin, *dims) == fused
+    if fused:
+        sa._check_kernel_layout("mlp_maxpool", cin, *dims)
+        steps = sum(-(-w.shape[0] // 8) * w.shape[1] // 256 for w, _ in weights)
+        assert sa.k4_weight_pack(weights).shape == (steps, 2, 2048)
+    else:
+        with pytest.raises(ValueError, match="mlp_maxpool"):
+            sa.k4_weight_pack(weights)
+    for w, _ in weights:  # the engine's streams, at any width
+        passes = -(-w.shape[1] // 256)
+        assert sa.layer_weight_pack(w).shape == (passes * -(-w.shape[0] // 8), 2, 2048)
     full = torch.zeros(1, 4, cin)
     assert sa.mlp_maxpool(full, weights).shape == (1, 1, dims[-1])
 
 
-def test_k4_widths_the_kernel_takes():
-    """SA3's widths, and the narrowest and widest inputs, pass the check."""
-    for cin in (1, 259, sa.K4_MAX_IN):
-        sa._check_kernel_layout("mlp_maxpool", cin, 256, 256, 512)
-    sa._check_kernel_layout("mlp_maxpool", 259, 256, 256, 256)
+@pytest.mark.parametrize("cin,dims", [(11, (16, 16, 24)), SA3_SCALE2])
+def test_layer_weight_pack_layout(cin, dims):
+    """Each layer's stream: (pass, step), part hi/lo, [half][column][input
+    % 4], with the columns padded to a multiple of 256 and the rows to a
+    multiple of 8 with zeros."""
+    for w, _ in _weights(np.random.RandomState(4), cin, dims):
+        kin, cout = w.shape
+        kpad, cpad = -(-kin // 8) * 8, -(-cout // 256) * 256
+        wp = torch.zeros(kpad, cpad)
+        wp[:kin, :cout] = w
+        hi, lo = sa.tf32_split(wp)
+        pack = sa.layer_weight_pack(w)
+        steps = kpad // 8
+        for p in range(cpad // 256):
+            for step in range(steps):
+                got = pack[p * steps + step].view(2, 2, 256, 4)
+                block = lambda t: t[8 * step:8 * step + 8, 256 * p:256 * p + 256]
+                want = torch.stack([block(hi), block(lo)]).view(2, 2, 4, 256).transpose(2, 3)
+                assert torch.equal(got, want), (p, step)
+
+
+def _walk_engine(full, layers):
+    """The layer engine's arithmetic on the CPU (csrc/groupall_layer.cu):
+    each layer's stream (`layer_weight_pack`) walked pass by pass and step
+    by step in float64, each product lo(x) hi(w) + hi(x) lo(w) + hi(x)
+    hi(w) with x split as the card splits it, z = acc + b in float32, and
+    the next layer's input relu(z * a + c) for train layers (w, b, scale,
+    bias), with the affine of z's batch statistics (sums in float64, then
+    `bn_affine` in float32, as the wrapper computes it), and relu(z) for
+    eval layers (w, b). Returns pooled (B, 1, C3) and the statistics."""
+    b, n, cin = full.shape
+    x, stats = full.reshape(b * n, cin), []
+    for w, bias, *bn in layers:
+        kin, cout = -(-x.shape[1] // 8) * 8, w.shape[1]
+        passes = -(-cout // 256)
+        xh, xl = (t.double() for t in sa.tf32_split(
+            torch.nn.functional.pad(x, (0, kin - x.shape[1]))))
+        pack = sa.layer_weight_pack(w).double()
+        z = torch.zeros(b * n, passes * 256, dtype=torch.float64)
+        for p in range(passes):
+            for step in range(kin // 8):
+                blk = pack[p * (kin // 8) + step].view(2, 2, 256, 4)
+                wh = blk[0].permute(0, 2, 1).reshape(8, 256)
+                wl = blk[1].permute(0, 2, 1).reshape(8, 256)
+                a_h, a_l = xh[:, 8 * step:8 * step + 8], xl[:, 8 * step:8 * step + 8]
+                z[:, 256 * p:256 * p + 256] += a_l @ wh + a_h @ wl + a_h @ wh
+        z = z[:, :cout].float() + bias
+        if bn:
+            zd = z.double()
+            m = zd.mean(dim=0)
+            stats.append((m.float(), ((zd * zd).mean(dim=0) - m * m).float()))
+            a, c = sa_train.bn_affine(*stats[-1], *bn)
+            z = z * a + c
+        x = torch.relu(z)
+    return x.view(b, n, -1).amax(dim=1, keepdim=True), stats
+
+
+@pytest.mark.parametrize("train", [False, True])
+@pytest.mark.parametrize("cin,dims", [SA3, SA3_SCALE2])
+def test_engine_stream_walk_matches_reference(cin, dims, train):
+    """Walking each layer's stream as the layer engine does gives the
+    plain version's output within 1e-4 (chip_smoke.py's bound): K4's
+    wide branch (eval, folded weights) against `mlp_maxpool_reference`,
+    K6 (train, batch statistics) against `groupall_train_reference`, its
+    statistics too, at both model scales; 3 x 7 rows fill no tile."""
+    rng = np.random.RandomState(5 + cin)
+    weights = _weights(rng, cin, dims)
+    full = torch.from_numpy((rng.randn(3, 7, cin) * 0.5).astype(np.float32))
+    if not train:
+        got, _ = _walk_engine(full, weights)
+        torch.testing.assert_close(got, sa.mlp_maxpool_reference(full, weights),
+                                   rtol=1e-4, atol=1e-4)
+        return
+    dense = tuple((w, b, torch.from_numpy(rng.uniform(0.8, 1.3, w.shape[1]).astype(np.float32)),
+                   torch.from_numpy((rng.randn(w.shape[1]) * 0.05).astype(np.float32)))
+                  for w, b in weights)
+    got, stats = _walk_engine(full, dense)
+    want, want_stats = sa_train.groupall_train_reference(full, dense)
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+    for (m, v), (wm, wv) in zip(stats, want_stats, strict=True):
+        torch.testing.assert_close(m, wm, rtol=1e-4, atol=1e-4)
+        torch.testing.assert_close(v, wv, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("dims,ok", [
+    ((64, 64, 128), True),     # SA1, scale 1
+    ((128, 128, 256), True),   # SA2, scale 1, and SA1, scale 2
+    ((256, 256, 512), True),   # SA2, scale 2: the last layer in two column passes
+    ((256, 264, 256), False),  # a hidden width past one tile's accumulators
+    ((64, 64, 132), False),    # a width that is not a multiple of 8
+])
+def test_tile_widths(dims, ok):
+    """The row-tile kernels (K3, K5) take hidden widths up to 256 and a
+    last layer of any multiple of 8 (`check_tile_widths`)."""
+    ws = [w for w, _ in _weights(np.random.RandomState(6), 7, dims)]
+    if ok:
+        sa.check_tile_widths("sa_gather_mlp", ws)
+    else:
+        with pytest.raises(ValueError, match="sa_gather_mlp"):
+            sa.check_tile_widths("sa_gather_mlp", ws)

@@ -13,6 +13,9 @@ of rows cancels, and the JAX CPU path's sums drift more than the port's
 where it is set.
 """
 
+import copy
+import functools
+
 import flax
 import jax
 import jax.numpy as jnp
@@ -24,6 +27,7 @@ import torch
 from gaddpg_tpu.agents import bc as jax_bc
 from gaddpg_tpu.agents import ddpg as jax_ddpg
 from gaddpg_tpu.agents import losses as jax_losses
+from gaddpg_tpu.agents import state as jax_agent_state
 from gaddpg_tpu.agents.config import AgentConfig as JaxAgentConfig
 from gaddpg_tpu.agents.state import AgentState as JaxAgentState
 from gaddpg_tpu.agents.state import make_optimizers as jax_make_optimizers
@@ -39,10 +43,14 @@ from gaddpg_tpu_torch.agents.state import (
 )
 from gaddpg_tpu_torch.geometry.gripper import HAND_FINGER_POINTS
 from gaddpg_tpu_torch.models import QNetwork
+from gaddpg_tpu_torch.models import pointnet as port_pointnet
+from gaddpg_tpu_torch.ops import sa_train, sampling
 
 NPOINTS = 96  # 6 hand anchors + 90 cloud points
 B = 8
 CFG = dict(target_update_interval=1, collision_aux_weight=0.1, collision_demo_discount=0.5)
+# model_scale 2: every SA and FC width doubled, a 1024-wide feature
+SCALE2 = dict(CFG, feature_dim=1024)
 # Train-mode feature: the JAX CPU path's SA1 output is 8.3e-5 off a
 # float64 evaluation, the port's 2.4e-6; the trunk's BatchNorms amplify
 # that to at most 9.3e-4 at the feature.
@@ -129,19 +137,18 @@ def _flax_tree(pairs):
     return out
 
 
-@pytest.fixture(scope="module")
-def jax_fresh():
+def _jax_fresh(cfg_kw):
     """A fresh JAX AgentState with the port's initial weights (plain-dict
     trees, as the jitted update returns them, so that one compile serves
     every state)."""
-    cfg = AgentConfig(**CFG)
+    cfg = AgentConfig(**cfg_kw)
     port = create_agent_state(cfg, generator=torch.Generator().manual_seed(3), device="cpu")
     feat_params = {n: _flax_tree(_encoder_pairs(getattr(port.feat, n)))
                    for n in ("encoder", "value_encoder")}
     feat_stats = {n: _flax_tree(_encoder_stat_pairs(getattr(port.feat, n)))
                   for n in ("encoder", "value_encoder")}
     policy, critic = _flax_tree(_policy_pairs(port.policy)), _flax_tree(_critic_pairs(port.critic))
-    txs = jax_make_optimizers(JaxAgentConfig(**CFG))
+    txs = jax_make_optimizers(JaxAgentConfig(**cfg_kw))
     return JaxAgentState(
         feat_params=feat_params, feat_stats=feat_stats, policy_params=policy,
         critic_params=critic, goal_params=None, goal_stats=None,
@@ -153,8 +160,32 @@ def jax_fresh():
 
 
 @pytest.fixture(scope="module")
+def jax_fresh():
+    return _jax_fresh(CFG)
+
+
+@pytest.fixture(scope="module")
+def jax_fresh_scale2():
+    return _jax_fresh(SCALE2)
+
+
+@pytest.fixture(scope="module")
 def jax_ddpg_update():
     return jax.jit(jax_ddpg.make_ddpg_update(JaxAgentConfig(**CFG)))
+
+
+@pytest.fixture(scope="module")
+def jax_scale2(jax_fresh_scale2):
+    """(jitted JAX DDPG update, state after one update) of a model_scale 2
+    agent. The JAX package's `make_modules` builds PointNetFeature at its
+    default scale 1; the update is built with the module's own `scale=2`
+    in its place."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jax_agent_state, "PointNetFeature",
+                   functools.partial(JaxPointNetFeature, scale=2))
+        update = jax.jit(jax_ddpg.make_ddpg_update(JaxAgentConfig(**SCALE2)))
+    state, _ = update(jax_fresh_scale2, make_batch(10), jax.random.PRNGKey(11))
+    return update, state
 
 
 @pytest.fixture(scope="module")
@@ -295,27 +326,84 @@ def test_state_copy_owns_its_optimizer_moments():
 
 # -- train-mode feature --------------------------------------------------------------
 
-@pytest.mark.parametrize("value", [False, True])
-def test_train_feature_matches_flax(jax_fresh, value, monkeypatch):
-    """PointNetFeature(train=True), policy or value path, against the Flax
-    module's train apply: the feature and the updated running stats."""
+@pytest.mark.parametrize("value,scale", [
+    pytest.param(False, 1, id="False"), pytest.param(True, 1, id="True"),
+    pytest.param(False, 2, id="False-scale2"), pytest.param(True, 2, id="True-scale2"),
+])
+def test_train_feature_matches_flax(value, scale, request, monkeypatch):
+    """PointNetFeature(train=True), policy or value path, at model_scale 1
+    and 2, against the Flax module's train apply: the feature and the
+    updated running stats."""
     monkeypatch.delenv("GADDPG_PALLAS_SA_TRAIN", raising=False)
+    js, cfg = ((request.getfixturevalue("jax_fresh"), CFG) if scale == 1 else
+               (request.getfixturevalue("jax_fresh_scale2"), SCALE2))
     batch = make_batch(12)
     ps, action = batch["point_state"], batch["action"] if value else None
-    variables = {"params": jax_fresh.feat_params, "batch_stats": jax_fresh.feat_stats}
-    want, mut = JaxPointNetFeature().apply(variables, ps, action=action, value=value,
-                                           train=True, mutable=["batch_stats"])
-    state = port_state(jax_fresh, AgentConfig(**CFG))
+    variables = {"params": js.feat_params, "batch_stats": js.feat_stats}
+    want, mut = JaxPointNetFeature(scale=scale).apply(
+        variables, ps, action=action, value=value, train=True, mutable=["batch_stats"])
+    state = port_state(js, AgentConfig(**cfg))
     got, stats = state.feat(torch.from_numpy(ps), None if action is None else
                             torch.from_numpy(action), value=value, train=True)
-    assert got.shape == (B, 512) and len(stats) == 11
+    assert got.shape == (B, 512 * scale) and len(stats) == 11
     np.testing.assert_allclose(got.detach().numpy(), np.asarray(want), **FEATURE)
     name = "value_encoder" if value else "encoder"
     enc = getattr(state.feat, name)
     enc.update_running_stats(stats)
     for t, path, _ in _encoder_stat_pairs(enc):
-        np.testing.assert_allclose(t.numpy(), _leaf(mut["batch_stats"][name], path), **STATS,
-                                   err_msg=str(path))
+        np.testing.assert_allclose(t.numpy(), _leaf(mut["batch_stats"][name], path),
+                                   **(STATS if scale == 1 else STATS_SCALE2), err_msg=str(path))
+
+
+def _plain_float64(monkeypatch):
+    """Route the port's train forward through the plain versions, which
+    take any dtype (the kernel wrappers take float32 only), with the FPS
+    and ball-query indices of the float32 clouds."""
+    def detached(out):
+        pooled, stats = out
+        return pooled, tuple((m.detach(), v.detach()) for m, v in stats)
+
+    monkeypatch.setattr(port_pointnet, "sa_train_fused",
+                        lambda *a: detached(sa_train.sa_train_reference(*a)))
+    monkeypatch.setattr(port_pointnet, "groupall_train_fused",
+                        lambda *a: detached(sa_train.groupall_train_reference(*a)))
+    monkeypatch.setattr(port_pointnet, "furthest_point_sampling",
+                        lambda xyz, k: sampling.fps_reference(xyz.float(), k))
+    monkeypatch.setattr(port_pointnet, "ball_query", lambda c, x, r, k:
+                        sampling.ball_query_reference(c.float(), x.float(), r, k))
+
+
+@pytest.mark.parametrize("scale", [1, 2])
+def test_train_statistics_near_float64(scale, request, monkeypatch):
+    """The reason for STATS and STATS_SCALE2: against a float64 evaluation
+    of the same network (the plain versions in float64), the port's float32
+    batch means of the FC trunk's first BatchNorm (2048 channels at scale
+    2) lie within 1e-5, the JAX CPU path's within 2e-4 (measured 8.5e-5 to
+    1.3e-4 at scale 1, 1.2e-4 to 1.5e-4 at scale 2; the port's 2.9e-6 to
+    4.7e-6). The running mean moves by a tenth of the batch mean."""
+    monkeypatch.delenv("GADDPG_PALLAS_SA_TRAIN", raising=False)
+    js, cfg = ((request.getfixturevalue("jax_fresh"), CFG) if scale == 1 else
+               (request.getfixturevalue("jax_fresh_scale2"), SCALE2))
+    batch = make_batch(12)
+    ps, action = batch["point_state"], batch["action"]
+    state = port_state(js, AgentConfig(**cfg))
+    for value, name in ((False, "encoder"), (True, "value_encoder")):
+        act = torch.from_numpy(action) if value else None
+        _, stats32 = state.feat(torch.from_numpy(ps), act, value=value, train=True)
+        with monkeypatch.context() as mp:
+            _plain_float64(mp)
+            feat64 = copy.deepcopy(state.feat).double()
+            _, stats64 = feat64(torch.from_numpy(ps).double(),
+                                None if act is None else act.double(), value=value, train=True)
+        _, mut = JaxPointNetFeature(scale=scale).apply(
+            {"params": js.feat_params, "batch_stats": js.feat_stats}, ps,
+            action=action if value else None, value=value, train=True, mutable=["batch_stats"])
+        m64 = stats64[9][0].detach().numpy()
+        r0 = np.asarray(js.feat_stats[name]["BatchNorm_0"]["mean"], np.float64)
+        m_jax = (np.asarray(mut["batch_stats"][name]["BatchNorm_0"]["mean"], np.float64)
+                 - port_pointnet.BN_MOMENTUM * r0) / (1 - port_pointnet.BN_MOMENTUM)
+        assert np.abs(stats32[9][0].numpy() - m64).max() <= 1e-5, name
+        assert np.abs(m_jax - m64).max() <= 2e-4, name
 
 
 # -- updates -------------------------------------------------------------------------
@@ -359,10 +447,11 @@ def _check_moves(port, before, after, cfg, bounds):
         assert off <= fraction * total, f"{name}: {off} of {total} moves differ"
 
 
-def _check_stats(port, after):
+def _check_stats(port, after, bound=None):
     for name in ("encoder", "value_encoder"):
         for t, path, _ in _encoder_stat_pairs(getattr(port.feat, name)):
-            np.testing.assert_allclose(t.numpy(), _leaf(after.feat_stats[name], path), **STATS,
+            np.testing.assert_allclose(t.numpy(), _leaf(after.feat_stats[name], path),
+                                       **(bound or STATS),
                                        err_msg=f"{name} {path}")
 
 
@@ -391,10 +480,21 @@ def _check_metrics(got, want, ac_rtol=0.0):
 # the updates start from a state with carried moments.)
 METRIC = dict(rtol=3e-3, atol=1e-6)  # critic_loss [1.0e-3]
 STATS = dict(rtol=1e-4, atol=1e-5)  # [3.2e-5]
+# At model_scale 2 the FC trunk's first BatchNorm normalises 2048
+# channels over B=8 rows, and the JAX CPU path's batch mean there lies
+# 1.2e-4 to 1.5e-4 off a float64 evaluation of the same network (the
+# port's 3.8e-6 to 4.7e-6; 8.5e-5 to 1.3e-4 for JAX at scale 1;
+# test_train_statistics_near_float64): 1.5e-5 in the running mean
+# (x 0.1), past STATS' atol.
+STATS_SCALE2 = dict(rtol=1e-4, atol=2e-5)  # [1.5e-5]
 CRITIC_PHASE = {"critic": (0.1, 1e-3),            # [1.5e-5]
                 "value_encoder": (0.1, 2e-3),     # [2.9e-4]
                 "critic_target": (0.1, 1e-3),     # [0]
                 "policy_target": (2.5e-4, 1e-3)}  # polyak: tau * (a policy move <= 2 lr)
+# model_scale 2, actor term off: the value encoder's moves carry the JAX
+# CPU path's BatchNorm statistics, 30x farther from float64 than the
+# port's at this scale (STATS_SCALE2) [2.4e-3 of its elements]
+CRITIC_PHASE_SCALE2 = dict(CRITIC_PHASE, value_encoder=(0.1, 5e-3))
 UPDATES = {  # name -> (update_step, actor_critic_loss rtol, policy/encoder bounds)
     # actor term off [7.4e-5 / 2.0e-4]
     "resumed": (1, 0.0, {"policy": (0.1, 1e-3), "encoder": (0.1, 2e-3)}),
@@ -403,17 +503,26 @@ UPDATES = {  # name -> (update_step, actor_critic_loss rtol, policy/encoder boun
 }
 
 
-@pytest.mark.parametrize("start", list(UPDATES))
-def test_ddpg_update_matches_jax(start, jax_resumed, jax_ddpg_update):
+@pytest.mark.parametrize("start,scale", [
+    *(pytest.param(start, 1, id=start) for start in UPDATES),
+    pytest.param("resumed", 2, id="resumed-scale2"),
+])
+def test_ddpg_update_matches_jax(start, scale, request):
     """One DDPG update from the same JAX state (after one JAX update:
     carried Adam moments) carried over with from_flax, at update_step 1
-    (the delayed actor term is off) and 2 (on)."""
+    (the delayed actor term is off) and 2 (on); at model_scale 2 at
+    update_step 1."""
+    if scale == 1:
+        update, resumed = (request.getfixturevalue("jax_ddpg_update"),
+                           request.getfixturevalue("jax_resumed"))
+    else:
+        update, resumed = request.getfixturevalue("jax_scale2")
     step, ac_rtol, bounds = UPDATES[start]
-    js = jax_resumed.replace(update_step=jnp.asarray(step, jnp.int32))
+    js = resumed.replace(update_step=jnp.asarray(step, jnp.int32))
     batch, key = make_batch(20), jax.random.PRNGKey(21)
-    after, want = jax_ddpg_update(js, batch, key)
+    after, want = update(js, batch, key)
     draws = np.array(jax.random.uniform(jax.random.split(key)[0], (B, 6)))
-    cfg = AgentConfig(**CFG)
+    cfg = AgentConfig(**(CFG if scale == 1 else SCALE2))
     port = port_state(js, cfg)
     count = port.opt["critic"].count
     assert count == 1
@@ -423,8 +532,9 @@ def test_ddpg_update_matches_jax(start, jax_resumed, jax_ddpg_update):
     _check_metrics(got, want, ac_rtol)
     assert port.update_step == int(after.update_step) == step + 1
     assert all(o.count == count + 1 for o in port.opt.values())
-    _check_stats(port, after)
-    _check_moves(port, js, after, cfg, {**CRITIC_PHASE, **bounds})
+    _check_stats(port, after, STATS if scale == 1 else STATS_SCALE2)
+    _check_moves(port, js, after, cfg,
+                 {**(CRITIC_PHASE if scale == 1 else CRITIC_PHASE_SCALE2), **bounds})
 
 
 def test_bc_update_matches_jax(jax_resumed):

@@ -9,6 +9,7 @@ XLA path keeps BatchNorm unfolded, which shifts rounding, and
 tests/test_pallas_sa.py already accepts 5e-4 between the two.
 """
 
+import functools
 import json
 import os
 import shutil
@@ -22,6 +23,7 @@ import pytest
 import torch
 
 from gaddpg_tpu.agents import ddpg as jax_ddpg
+from gaddpg_tpu.agents import state as jax_agent_state
 from gaddpg_tpu.agents.config import AgentConfig as JaxAgentConfig
 from gaddpg_tpu.agents.state import create_agent_state as jax_create_agent_state
 from gaddpg_tpu.deploy.runner import Frame as JaxFrame
@@ -56,11 +58,16 @@ def _perturb_bn(tree, rng, stats: bool):
     return out
 
 
-@pytest.fixture(scope="module")
-def jax_state():
-    """A JAX AgentState from `create_agent_state`, with BatchNorm
-    parameters and running statistics perturbed."""
-    state = jax_create_agent_state(jax.random.PRNGKey(2), JaxAgentConfig(), npoints=NPOINTS)
+def _jax_state(scale):
+    """A JAX AgentState from `create_agent_state` at model_scale `scale`,
+    with BatchNorm parameters and running statistics perturbed. The JAX
+    package's `make_modules` builds PointNetFeature at its default scale
+    1; scale 2 puts the module's own `scale=2` in its place."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jax_agent_state, "PointNetFeature",
+                   functools.partial(JaxPointNetFeature, scale=scale))
+        state = jax_create_agent_state(jax.random.PRNGKey(2),
+                                       JaxAgentConfig(feature_dim=512 * scale), npoints=NPOINTS)
     rng = np.random.RandomState(0)
 
     def numpy_tree(t):
@@ -74,9 +81,22 @@ def jax_state():
 
 
 @pytest.fixture(scope="module")
+def jax_state():
+    return _jax_state(1)
+
+
+@pytest.fixture(scope="module")
 def port_state(jax_state):
     return from_flax(jax_state.feat_params, jax_state.feat_stats,
                      jax_state.policy_params, device="cpu")
+
+
+@pytest.fixture(scope="module")
+def scale2_states():
+    """(JAX state, port state) of a model_scale 2 agent."""
+    js = _jax_state(2)
+    return js, from_flax(js.feat_params, js.feat_stats, js.policy_params,
+                         AgentConfig(feature_dim=1024), device="cpu")
 
 
 def point_state(batch, seed):
@@ -87,22 +107,33 @@ def point_state(batch, seed):
     return ps
 
 
-@pytest.mark.parametrize("mode,tol", [("interpret", 1e-4), ("0", 5e-4)])
-def test_feature_matches_jax(jax_state, port_state, monkeypatch, mode, tol):
-    """PointNetFeature eval forward, policy and value encoders; the JAX
-    side on its fused Pallas path (interpret) or its plain XLA path (0)."""
+@pytest.mark.parametrize("mode,tol,scale", [
+    pytest.param("interpret", 1e-4, 1, id="interpret-0.0001"),
+    pytest.param("0", 5e-4, 1, id="0-0.0005"),
+    pytest.param("interpret", 1e-4, 2, id="interpret-0.0001-scale2"),
+    pytest.param("0", 5e-4, 2, id="0-0.0005-scale2"),
+])
+def test_feature_matches_jax(request, monkeypatch, mode, tol, scale):
+    """PointNetFeature eval forward, policy and value encoders, at
+    model_scale 1 and 2; the JAX side on its fused Pallas path
+    (interpret) or its plain XLA path (0)."""
+    if scale == 1:
+        jax_state, port_state = (request.getfixturevalue("jax_state"),
+                                 request.getfixturevalue("port_state"))
+    else:
+        jax_state, port_state = request.getfixturevalue("scale2_states")
     ps = point_state(2, 1)
     action = np.random.RandomState(2).uniform(-0.05, 0.05, (2, 6)).astype(np.float32)
     monkeypatch.setenv("GADDPG_PALLAS_SA", mode)
     variables = {"params": jax_state.feat_params, "batch_stats": jax_state.feat_stats}
-    feat = JaxPointNetFeature()
+    feat = JaxPointNetFeature(scale=scale)
     want = feat.apply(variables, ps, train=False)
     want_v = feat.apply(variables, ps, action=action, value=True, train=False)
     with torch.no_grad():
         got = port_state.feat(torch.from_numpy(ps))
         got_v = port_state.feat(torch.from_numpy(ps), action=torch.from_numpy(action),
                                 value=True)
-    assert got.shape == (2, 512) and float(got.std()) > 0
+    assert got.shape == (2, 512 * scale) and float(got.std()) > 0
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=tol, atol=tol)
     np.testing.assert_allclose(got_v.numpy(), np.asarray(want_v), rtol=tol, atol=tol)
 

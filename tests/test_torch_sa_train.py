@@ -26,8 +26,11 @@ VAR = dict(rtol=1e-4, atol=1e-6)
 GRAD = dict(rtol=2e-3, atol=5e-3)
 
 
-def _inputs(seed, b=2, n=24, s=4, k=8, cin=5, dims=(6, 6, 8)):
-    """numpy (idx, full, cpad, dense) at the JAX suite's tiny shapes."""
+def _inputs(seed, b=2, n=24, s=4, k=8, cin=5, dims=(6, 6, 8), kaiming=False):
+    """numpy (idx, full, cpad, dense) at the JAX suite's tiny shapes; with
+    `kaiming` the Dense weights have the model's kaiming-normal scale,
+    sqrt(2 / fan_in), instead of 0.4 (at the model's widths a fixed 0.4
+    makes |z| grow as sqrt(fan_in))."""
     rng = np.random.RandomState(seed)
     full = rng.randn(b, n, cin).astype(np.float32)
     idx = rng.randint(0, n, (b, s, k)).astype(np.int32)
@@ -35,7 +38,7 @@ def _inputs(seed, b=2, n=24, s=4, k=8, cin=5, dims=(6, 6, 8)):
     cpad[..., :3] = rng.randn(b, s, 3) * 0.1
     dense, c = [], cin
     for d in dims:
-        dense.append(((rng.randn(c, d) * 0.4).astype(np.float32),
+        dense.append(((rng.randn(c, d) * (np.sqrt(2.0 / c) if kaiming else 0.4)).astype(np.float32),
                       (rng.randn(d) * 0.05).astype(np.float32),
                       rng.uniform(0.8, 1.3, d).astype(np.float32),
                       (rng.randn(d) * 0.05).astype(np.float32)))
@@ -73,11 +76,22 @@ def test_reference_matches_xla(group_all):
     _check(got, want)
 
 
+# input shapes of the interpret-mode comparison: small widths, and the
+# model_scale 2 widths of SA2 (grouped) and SA3 (group-all) with rows
+# that fill no 64-row tile (2 x 3 x 10 slots, 3 x 7 rows)
+INTERPRET_SHAPES = {
+    "small": (dict(b=3, n=32, s=4, k=16, cin=7, dims=(8, 8, 16)),) * 2,
+    "scale2": (dict(b=2, n=24, s=3, k=10, cin=259, dims=(256, 256, 512), kaiming=True),
+               dict(b=3, n=7, s=1, k=1, cin=515, dims=(512, 512, 1024), kaiming=True)),
+}
+
+
+@pytest.mark.parametrize("widths", list(INTERPRET_SHAPES))
 @pytest.mark.parametrize("group_all", [False, True])
-def test_wrapper_matches_pallas_interpret(group_all):
+def test_wrapper_matches_pallas_interpret(group_all, widths):
     """The CPU wrapper (autograd.Function around the plain version)
     against the Pallas kernels in interpret mode; no launch counted."""
-    idx, full, cpad, dense = _inputs(1, b=3, n=32, s=4, k=16, cin=7, dims=(8, 8, 16))
+    idx, full, cpad, dense = _inputs(1, **INTERPRET_SHAPES[widths][group_all])
     before = (sa_train.sa_train_fused.launches, sa_train.groupall_train_fused.launches)
     if group_all:
         got = sa_train.groupall_train_fused(_torch(full), _torch_dense(dense))

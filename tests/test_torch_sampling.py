@@ -30,6 +30,62 @@ def test_fps_matches_jax(n, npoint, seed):
     np.testing.assert_array_equal(got, np.asarray(fps_pallas(xyz, npoint, interpret=True)))
 
 
+def _tie_cloud(kind, n, seed):
+    """A cloud whose FPS steps tie: 8 points repeated (every later step
+    ties at distance 0 or between copies), or points on an integer grid
+    (squared distances are small integers)."""
+    rng = np.random.RandomState(seed)
+    if kind == "repeated":
+        return np.tile(rng.rand(8, 3).astype(np.float32), (-(-n // 8), 1))[:n]
+    return rng.randint(0, 4, (n, 3)).astype(np.float32)
+
+
+@pytest.mark.parametrize("n", [1, 31, 32, 33, 1030, 1031])
+@pytest.mark.parametrize("kind", ["repeated", "grid"])
+def test_fps_ties_match_pallas(kind, n):
+    """Exact ties go to the lowest index, as in the Pallas kernel, on
+    clouds around the warp's 32 lanes (K1 gives lane l the points l, l +
+    32, ...) and the SA1 size."""
+    xyz = _tie_cloud(kind, n, 20 + n)
+    got = sampling.furthest_point_sampling(torch.from_numpy(xyz)[None], 32)[0].numpy()
+    np.testing.assert_array_equal(got, np.asarray(fps_pallas(xyz, 32, interpret=True)))
+
+
+def warp_argmax(dist):
+    """A model of K1's argmax over one cloud's distance registers
+    (csrc/fps.cu): lane l visits points l, l + 32, ... in order keeping
+    the first of equal values (a strict >), then a __shfl_xor_sync
+    butterfly over offsets 16, 8, 4, 2, 1 takes the other lane's pair when
+    its value is larger, or equal with a lower index. Every lane ends
+    with the same pair; returns its index."""
+    n = len(dist)
+    best = []
+    for lane in range(32):
+        b, bi = -1.0, n
+        for j in range(lane, n, 32):
+            if dist[j] > b:
+                b, bi = dist[j], j
+        best.append((b, bi))
+    for off in (16, 8, 4, 2, 1):
+        nxt = []
+        for lane in range(32):
+            (b, bi), (v, k) = best[lane], best[lane ^ off]
+            nxt.append((v, k) if v > b or (v == b and k < bi) else (b, bi))
+        best = nxt
+    assert len(set(best)) == 1
+    return best[0][1]
+
+
+@pytest.mark.parametrize("n", [1, 31, 32, 33, 1030, 1031])
+def test_warp_argmax_model_is_the_first_maximum(n):
+    """The lane ownership and butterfly tie rule pick what torch.argmax
+    picks (the first maximum), on registers with many ties."""
+    rng = np.random.RandomState(n)
+    for _ in range(20):
+        dist = rng.randint(0, 3, n).astype(np.float32)
+        assert warp_argmax(dist.tolist()) == int(torch.argmax(torch.from_numpy(dist)))
+
+
 def test_fps_batch_matches_vmap():
     xyzs = cloud(1024, 3, batch=4)
     got = sampling.furthest_point_sampling(torch.from_numpy(xyzs), 32).numpy()
