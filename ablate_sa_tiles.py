@@ -4,6 +4,7 @@ what each step of a redesign buys, each package timed in its own process,
 in turns.
 
     python3 ablate_sa_tiles.py [--parent DIR] [--variants NAME,...] [--no-k7]
+    python3 ablate_sa_tiles.py --k2-layouts
 
 Writes variants of `gaddpg_tpu_torch` under build/ablate/ (copies of the
 package with one piece of a kernel swapped), then times each package in
@@ -15,6 +16,11 @@ final):
                warp per env, IEEE division and square root;
   k7_warps     and four warps per env (one per contact body, at most 64
                registers a thread);
+  k2_no_rows   this checkout's K2 with no rows built or written,
+  k2_no_masks  with no hit masks made (clouds of several chunks), or
+  k2_one_op    with one rounded operation a pair in the masks, not
+               eight: what each phase costs (wrong indices; K1 and K2
+               alone are timed);
   k6_regload   this checkout with K6's layer engine loading its rows
                through registers, four rows at a time (36 loads in flight
                a lane), instead of by cp.async;
@@ -23,15 +29,17 @@ final):
                slow path (csrc/contact_scan.cu `fdiv`, `fsqrt`); K4 on
                wgmma in 3xTF32; K6 one layer-engine launch per layer on
                wgmma (csrc/groupall_layer.cu); K1 one warp per cloud;
+               K2 a block per cloud with hit masks and a prefix count
+               (csrc/ball_query.cu);
   k7_w2m1      the final K7 with two warps per env (128 registers);
   k7_w4m1      the final K7 with four warps per env (64 registers);
   k7_math2     the final K7 with the approximate division and square
                root alone (2 ulp).
 
-Each process prints one JSON line: K1 per level at B = 1, 256 and 1024,
-K3 per level at B=1024 and K5 and K6 per policy level at B=256 on
-chip_smoke.py's synthetic clouds, K4 at B = 1,
-256 and 1024 on the serving shapes' SA3 input, K7 at (B, n) = (1024, 75),
+Each process prints one JSON line: K1 and K2 per level at B = 1, 8, 256
+and 1024, K3 per level at B=1024 and K5 and K6 per policy level at B=256 on
+chip_smoke.py's synthetic clouds, K4 at B = 1, 256 and 1024 on the
+serving shapes' SA3 input, K7 at (B, n) = (1024, 75),
 (64, 75) and (1024, 200) on live rollout states (CUDA events,
 chip_smoke.cuda_ms; the largest difference from the plain version beside
 each; for K7 also the envs off the JAX bounds, whether each is chaotic,
@@ -42,8 +50,9 @@ variants that give the same bits), select_action at B = 1 and 1024,
 the DDPG and BC updates at B=256 x 1030 (median of 3 after a warm-up)
 with the DDPG update's peak memory, and reset and retract_batched at
 B=1024 (median of 3 after a warm-up; host clock); with --quick K4 and K7
-alone, with --no-k7 no K7 and no env call. Needs a card; the variants
-build their kernels into their own build/ directories.
+alone, with --no-k7 no K7 and no env call. With --k2-layouts one process
+times this checkout's K2 alone (`measure_k2_layouts`). Needs a card; the
+variants build their kernels into their own build/ directories.
 
 The K7 variants are this checkout's csrc/contact_scan.cu with its
 division and square root swapped (K7_IEEE_MATH, K7_APPROX_MATH) or its
@@ -69,7 +78,11 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 OUT = ROOT / "build" / "ablate"
-DEFAULT_VARIANTS = ("parent", "k6_regload", "final")
+DEFAULT_VARIANTS = ("parent", "final")
+# --k2-layouts: K2 per level at these batches with each number of a
+# cloud's centres a block forced, beside the wrapper's choice
+K2_LAYOUT_BATCHES = (1, 8, 32, 256, 1024)
+K2_LAYOUT_CENTRES = (1, 2, 4, 8, 16, 32)
 K7_SHAPES = ((1024, 75), (64, 75), (1024, 200))
 
 def _replace(path, old, new):
@@ -225,6 +238,22 @@ __device__ __forceinline__ void load_chunk(const LayerArgs& p, int row0, int k0,
 
 """
 
+# K2's phases, each taken out in turn (csrc/ball_query.cu), to time what
+# each costs: the variants' indices are wrong on purpose
+K2_VARIANTS = {
+    # no rows: no warp builds or writes a row
+    "k2_no_rows": ("  for (int r0 = 2 * warp; r0 < nc; r0 += 2 * kWarps) {",
+                   "  for (int r0 = 2 * warp; r0 < 0; r0 += 2 * kWarps) {"),
+    # no masks: the mask units of clouds of several chunks are skipped
+    "k2_no_masks": ("      for (int u = warp; u < nchunks * cgroups; u += kWarps) {",
+                    "      for (int u = warp; u < 0; u += kWarps) {"),
+    # one rounded operation a (centre, point) pair in the masks, not eight
+    "k2_one_op": ("            if (gaddpg::sq_dist(cc.x, cc.y, cc.z, q.x, q.y, q.z) <= r2) word |= 1u << p;\n"
+                  "          }\n        } else {",
+                  "            if (__fsub_rn(cc.x, q.x) <= r2) word |= 1u << p;\n"
+                  "          }\n        } else {"),
+}
+
 # (warps per env, division and square root) of each K7 variant
 K7_VARIANTS = {
     "k7_smem": (1, K7_IEEE_MATH),
@@ -252,6 +281,11 @@ def write_variants(names):
             _replace(src, K7_NEWTON_MATH, math)
             if warps > 1:
                 src.write_text(k7_env_warps(src.read_text(), warps))
+            dirs[name] = pkg.parent
+    for name, (old, new) in K2_VARIANTS.items():
+        if name in names:
+            pkg = _copy_package(name)
+            _replace(pkg / "ops" / "csrc" / "ball_query.cu", old, new)
             dirs[name] = pkg.parent
     if "k6_regload" in names:
         pkg = _copy_package("k6_regload")
@@ -288,14 +322,23 @@ def measure(tag, quick=False, k7=True):
         if quick:
             measure_k4_k7(sm, gen, out, env_calls=False)
             return out
-        for batch in (1, 256, 1024):
+        for batch in (1, 8, 256, 1024):
             fps_ps = cs.synthetic_point_state(batch, gen, sm.hand_points, sm.device)
-            for label, args in sm.level_inputs(fps_ps)["fps"]:
+            calls = sm.level_inputs(fps_ps)
+            for label, args in calls["fps"]:
                 same = torch.equal(sm.sampling.furthest_point_sampling(*args),
                                    sm.sampling.fps_reference(*args))
                 out[f"K1 {label} B={batch}"] = {
                     "ms": cs.cuda_ms(lambda: sm.sampling.furthest_point_sampling(*args)),
                     "indices_equal": same}
+            for label, args in calls["ball_query"]:
+                same = torch.equal(sm.sampling.ball_query(*args),
+                                   sm.sampling.ball_query_reference(*args))
+                out[f"K2 {label} B={batch}"] = {
+                    "ms": cs.cuda_ms(lambda: sm.sampling.ball_query(*args)),
+                    "indices_equal": same}
+        if tag in K2_VARIANTS:  # wrong indices: nothing downstream is timed
+            return out
         ps = cs.synthetic_point_state(1024, gen, sm.hand_points, sm.device)
         for label, args in sm.level_inputs(ps)["sa_gather_mlp"]:
             err = (sm.sa.sa_gather_mlp(*args) - sm.sa.sa_gather_mlp_reference(*args)).abs().max()
@@ -422,6 +465,40 @@ def k7_reading(sm, p, n, args):
         "sha256": hashlib.sha256(got.cpu().numpy().tobytes()).hexdigest()[:16]}
 
 
+def measure_k2_layouts():
+    """This checkout's K2 per level at each of K2_LAYOUT_BATCHES on
+    chip_smoke.py's synthetic clouds, launched with each of
+    K2_LAYOUT_CENTRES centres a block (indices checked against
+    ball_query_reference), beside the centres `ball_query_layout` picks."""
+    import torch
+
+    import chip_smoke as cs
+    from gaddpg_tpu_torch.ops import build, sampling
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    sms = sampling.sm_count(torch.cuda.current_device())
+    out = {"variant": "k2_layouts", "sms": sms}
+    with torch.no_grad():
+        sm = cs.Smoke()
+        for batch in K2_LAYOUT_BATCHES:
+            ps = cs.synthetic_point_state(batch, gen, sm.hand_points, sm.device)
+            for label, (centres, xyz, radius, nsample) in sm.level_inputs(ps)["ball_query"]:
+                b, s, n = centres.shape[0], centres.shape[1], xyz.shape[1]
+                want = sampling.ball_query_reference(centres, xyz, radius, nsample)
+                row = {"wrapper": sampling.ball_query_layout(b, s, n, nsample, sms)[0]}
+                for per in K2_LAYOUT_CENTRES:
+                    got = torch.empty_like(want)
+                    launch = lambda: build.launch(
+                        "ball_query", xyz.device, centres.data_ptr(), xyz.data_ptr(), b, s, n,
+                        sampling._radius_sq(radius), nsample, per, got.data_ptr())
+                    launch()
+                    if not torch.equal(got, want):
+                        raise AssertionError(f"K2 {label} B={batch}, {per} centres a block")
+                    row[str(per)] = cs.cuda_ms(launch)
+                out[f"K2 {label} B={batch}"] = row
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--parent", type=Path, help="an unpacked earlier commit to time first")
@@ -429,6 +506,8 @@ def main() -> int:
                     help="comma-separated variants, in the order to time them")
     ap.add_argument("--quick", action="store_true", help="time K4 and K7 alone")
     ap.add_argument("--no-k7", action="store_true", help="time no K7 and no env call")
+    ap.add_argument("--k2-layouts", action="store_true",
+                    help="time this checkout's K2 with each number of centres a block alone")
     ap.add_argument("--measure", help=argparse.SUPPRESS)  # one variant, in a child process
     args = ap.parse_args()
     if args.measure:
@@ -446,6 +525,12 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("ablate_sa_tiles: no CUDA device available", file=sys.stderr)
         return 1
+    if args.k2_layouts:
+        print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                              "--format=csv,noheader"],
+                             capture_output=True, text=True, check=True).stdout.strip())
+        print(json.dumps(measure_k2_layouts()), flush=True)
+        return 0
     names = args.variants.split(",")
     dirs = {"final": ROOT, **write_variants(names)}
     if args.parent:

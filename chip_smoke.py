@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port (`gaddpg_tpu_torch`) on one CUDA card.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--scale2-seeds A-B]
 
 Phases, each of which must pass:
   1. build the CUDA kernels of K1 FPS, K2 ball query, K3 eval SA
@@ -15,10 +15,17 @@ Phases, each of which must pass:
      clouds (a cloud of 8 points repeated, an integer grid; B = 1, 256,
      1024, N = 1024, 1031, 32, 33) and synthetic clouds at B = 1, 256,
      1024, its SA2 call on each cloud's SA1 centres, and (phase 9) on the
-     env's clouds; K5/K6 (`sa_train_fused`, `groupall_train_fused`) at the
-     learner's shapes (policy SA1, value SA1, SA2, SA3): pooled output and
-     batch statistics within 1e-4, the gradient of sum(pooled^2) through
-     the wrapper within 1e-3 of each leaf's largest (the Dense biases,
+     env's clouds; K2 the same way (SA1 and SA2 at B = 1, 256, 1024 on
+     synthetic and, in phase 9, the env's clouds), and on clouds that
+     stress its walk (N = 1, 31, 33, 1030 and 1100, so a partial chunk and
+     more than 32 chunks; 13 centres; 13 slots; far centres whose nearest
+     point is repeated; an integer grid; r = 0; all drawn from a generator
+     of K2_SEED's), indices exactly equal and two launches bit-identical;
+     K5/K6 (`sa_train_fused`,
+     `groupall_train_fused`) at the learner's shapes (policy SA1, value
+     SA1, SA2, SA3): pooled output and batch statistics within 1e-4,
+     the gradient of sum(pooled^2) through the wrapper within 1e-3 of
+     each leaf's largest (the Dense biases,
      whose exact gradient is 0 under a batch-stat BatchNorm, within 1e-3
      of the call's largest gradient of 0 on both sides), and two calls
      giving bit-identical pooled outputs and statistics; then K3 and K5
@@ -43,8 +50,9 @@ Phases, each of which must pass:
   4. drive `PolicyRunner` on synthetic depth frames through APPROACH ->
      RETRACT -> DONE;
   5. time each serving kernel and its plain version at the serving shapes
-     (CUDA events, median), with K3's distinct-row share and its bound
-     (distinct rows at 165 TFLOP/s), select_action per batch (host clock) and its
+     (CUDA events, median; K2 also at B = 8 and 256, on clouds of its own
+     seed), with K3's distinct-row share and its bound (distinct rows at
+     165 TFLOP/s), select_action per batch (host clock) and its
      device busy time and top device activities (torch.profiler).
      Phase 4 reports the runner's per-request latency;
   6. drive the learner: `make_ddpg_update` and `make_bc_update` on a
@@ -122,7 +130,10 @@ Phases, each of which must pass:
  10. the model_scale 2 agent card vs CPU: `select_action` at B=8 (the
      launches of one call as at scale 1, K4 on its layer engine) within
      1e-3, and one B=8 DDPG update from a common state within phase 6's
-     bounds.
+     bounds on each of the batches of seeds 0-7, each logged beside the
+     plain version's one-ulp spread. With --scale2-seeds A-B the build and
+     this check alone run, on the batches of seeds A to B; --plain-on-card
+     K5,K6 runs those kernels' plain versions on the card there.
 
 Prints the card's name and power limit (nvidia-smi), then one JSON line
 with every kernel's numbers (launches: K1-K4 over the phase-3 calls, K5/K6
@@ -134,6 +145,7 @@ B=256, K7 one 75-substep launch at B=1024), then as the last line
 no CUDA card is available or any phase fails.
 """
 
+import argparse
 import dataclasses
 import json
 import os
@@ -189,6 +201,16 @@ SCALE2_SELECT_SEED = 100
 FPS_TIE_SHAPES = ((1, 1024), (256, 1024), (1024, 1024), (1024, 32), (256, 1031), (8, 33))
 MAIN_BATCHES = (1, 8, 1024)   # one robot, entry(), bench.py's env count
 TIME_BATCHES = (1, 1024)      # kernel timings; the JSON line sums the last
+# K2 is also timed at entry()'s and the learner's batch, on clouds drawn
+# from a generator of K2_SEED's, as its checks are: the other phases keep
+# their draws
+K2_TIME_BATCHES = (8, 256)
+K2_SEED = 7
+# K2 against its plain version on clouds that stress its walk: (label, N,
+# centres, radius, nsample); N = 1030 and 1100 have more than 32 chunks,
+# 13 centres are not a multiple of a block's 8 warps, 13 slots not of 4
+K2_CASES = (("N=1", 1, 13, 0.05, 24), ("N=31", 31, 13, 0.05, 13), ("N=33", 33, 13, 0.05, 8),
+            ("N=1030", 1030, 13, 0.1, 64), ("N=1100", 1100, 13, 0.05, 512))
 ENV_BATCH = 1024              # bench.py's env count
 ENV_STEPS = 20                # RL_MAX_STEP
 # K7 against its plain version: (batch, substeps); 60 is
@@ -691,6 +713,61 @@ class Smoke:
             log(f"[check] fps           {label} N={xyz.shape[1]}: indices equal at SA1 "
                 "and SA2 ok")
 
+    def check_ball_query(self, gen, clouds=None):
+        """K2's indices exactly equal to ball_query_reference's, and two
+        launches bit-identical: on synthetic serving clouds at B = 1, 256,
+        1024 (SA1 on the cloud's FPS centres, SA2 on those centres), on
+        K2_CASES (points N(0, 0.05), centres drawn from them), on far
+        centres with no hit whose nearest point is repeated, on an integer
+        grid (distances exactly at r), and at r = 0 (hits only on the
+        centre's copies); or, given `clouds` (B, N, 3), SA1 and SA2 on
+        their first 1, 256 and 1024 (the env's)."""
+        sampling, dev = self.sampling, self.device
+        (_, npoint, r1, k1), (_, _, r2, k2) = SA_LEVELS
+        cases = []
+        for b in (1, TRAIN_BATCH, ENV_BATCH):
+            if clouds is None:
+                ps = synthetic_point_state(b, gen, self.hand_points, dev)
+                xyz, tag = ps[:, :3, 6:].transpose(1, 2).contiguous(), "synthetic"
+            else:
+                xyz, tag = clouds[:b].contiguous(), "env"
+            centres = sampling.gather_points(xyz, sampling.fps_reference(xyz, npoint))
+            cases.append((f"{tag} SA1 B={b}", centres, xyz, r1, k1))
+            sa2 = sampling.gather_points(centres, sampling.fps_reference(centres, npoint))
+            cases.append((f"{tag} SA2 B={b}", sa2.contiguous(), centres.contiguous(), r2, k2))
+        if clouds is None:
+            for label, n, s, radius, nsample in K2_CASES:
+                xyz = 0.05 * torch.randn((8, n, 3), generator=gen, device=dev)
+                pick = torch.randint(0, n, (8, s), generator=gen, device=dev)
+                cases.append((label, sampling.gather_points(xyz, pick), xyz, radius, nsample))
+            base = torch.rand((8, 8, 3), generator=gen, device=dev)
+            rep = base.repeat(1, 9, 1)[:, :70].contiguous()
+            far = torch.tensor([[3.0, 0.5, 0.5], [-2.0, 0.2, 0.0], [0.5, 0.5, 9.0]], device=dev)
+            cases.append(("far centres, nearest repeated",
+                          torch.cat([rep[:, :4], far.expand(8, 3, 3)], dim=1), rep, 0.01, 16))
+            grid = torch.randint(0, 4, (8, 100, 3), generator=gen, device=dev).float()
+            shift = 0.5 * (torch.rand((8, 13, 1), generator=gen, device=dev) > 0.5)
+            cases.append(("integer grid", grid[:, :13] + shift, grid, 1.0, 8))
+            cases.append(("r=0", rep[:, 3:16].contiguous(), rep, 0.0, 12))
+        for label, centres, xyz, radius, nsample in cases:
+            got = sampling.ball_query(centres, xyz, radius, nsample)
+            again = sampling.ball_query(centres, xyz, radius, nsample)
+            want = sampling.ball_query_reference(centres, xyz, radius, nsample)
+            if not torch.equal(got, want):
+                bad = (got != want).sum().item()
+                raise AssertionError(f"ball_query {label}: {bad} indices differ")
+            if not torch.equal(got, again):
+                raise AssertionError(f"ball_query {label}: two launches differ")
+            d2 = sampling._sq_dist(centres[:, :, None, :], xyz[:, None, :, :])
+            hits = (d2 <= sampling._radius_sq(radius)).sum(dim=-1)
+            b, s, n = centres.shape[0], centres.shape[1], xyz.shape[1]
+            per = sampling.ball_query_layout(b, s, n, nsample, sampling.sm_count(xyz.device.index))[0]
+            log(f"[check] ball_query    {label} (B={b}, S={s}, N={n}, r={radius}, "
+                f"nsample={nsample}, {per} centres a block): "
+                f"hits {int(hits.min())}-{int(hits.max())}, {int((hits == 0).sum())} centres "
+                f"without, {int((hits >= nsample).sum())} with a full row; indices equal, two "
+                "launches bit-identical ok")
+
     def check_k4(self, gen):
         """K4 (mlp_maxpool) against its plain version within 1e-4 at B =
         1, 3, 256 and 1024 (one, two, 64 and 256 full 128-row tiles:
@@ -914,6 +991,11 @@ class Smoke:
                         t["plain_ms"] += plain
                         t["bytes"] += nbytes
                         t["flops"] += flops
+        k2_gen = torch.Generator(device=self.device).manual_seed(K2_SEED)
+        for batch in K2_TIME_BATCHES:
+            ps = synthetic_point_state(batch, k2_gen, self.hand_points, self.device)
+            for label, args in self.level_inputs(ps)["ball_query"]:
+                self.time_serving("ball_query", label, batch, args)
         for batch, (ps, remain) in inputs.items():
             call = lambda: select(self.state, ps, remain)
             ms = host_ms(call, reps=20 if batch < 256 else 10)
@@ -1242,12 +1324,13 @@ class Smoke:
             err = max(err, (got[k].cpu() - w).abs().item())
         return err
 
-    def scale2_card_vs_cpu(self):
+    def scale2_card_vs_cpu(self, seeds=SCALE2_SEEDS):
         """The model_scale 2 agent on the card against the CPU, each batch
         from a generator of its own: `select_action` at B=8 (the launches
         of one call as at scale 1, K4 on its layer engine) within 1e-3; then
         for each of SCALE2_SEEDS one B=8 DDPG update from a common state
-        (card_vs_cpu's first update), within the scale 1 bounds. Beside each
+        (card_vs_cpu's first update; `seeds` sets which batches), within the
+        scale 1 bounds. Beside each
         seed's card-vs-CPU moves it logs the plain version's own float32
         spread on the same batch: the CPU update run again with the point
         states nudged by one ulp (each float in a random direction), against
@@ -1282,7 +1365,7 @@ class Smoke:
 
         cfg, update, update_cpu, start = self.b8_learner(SCALE2_FEATURE)
         worst, failed = {}, []
-        for seed in SCALE2_SEEDS:
+        for seed in seeds:
             gen = torch.Generator(device=self.device).manual_seed(seed)
             batches = [self.mixed_batch(8, gen) for _ in range(2)]
             draws = [torch.rand((8, 6), generator=gen, device=self.device) for _ in batches]
@@ -1310,12 +1393,12 @@ class Smoke:
                 f"statistics max_abs_err={serr:.3e}; moves off, card vs CPU | one-ulp nudge "
                 "vs CPU: " + ", ".join(f"{g} {o} | {spread[g][0]} of {n} (bound {s})"
                                        for g, (o, n, s) in offs.items()))
-        log(f"[learner] scale 2 over seeds {list(SCALE2_SEEDS)}: largest share of moves off, "
+        log(f"[learner] scale 2 over seeds {list(seeds)}: largest share of moves off, "
             "card vs CPU | one-ulp nudge vs CPU: " + ", ".join(
                 f"{g} {c / n:.2e} | {s / n:.2e}" for g, (c, s, n) in worst.items()))
         if failed:
             raise AssertionError("scale 2 DDPG update, card vs CPU: " + "; ".join(failed))
-        log(f"[learner] ddpg update B=8 scale 2, {len(SCALE2_SEEDS)} seeds: indices equal, "
+        log(f"[learner] ddpg update B=8 scale 2, {len(seeds)} seeds: indices equal, "
             "metrics, running statistics and moves within bounds ok")
 
     def move_offs(self, cfg, before, state, other):
@@ -1395,9 +1478,12 @@ class Smoke:
         the worst case of its SA2 inputs (every slot computed), beside its
         plain version, distinct-row share and bounds (CUDA events). The
         synthetic batches of phases 5 and 6 have other distinct shares.
-        Before, K1 on the same clouds (`check_fps`)."""
+        Before, K1 and K2 on the same clouds (`check_fps`,
+        `check_ball_query`)."""
         with torch.no_grad():
-            self.check_fps(None, point_state[:, :3, 6:].transpose(1, 2))
+            env_clouds = point_state[:, :3, 6:].transpose(1, 2)
+            self.check_fps(None, env_clouds)
+            self.check_ball_query(None, env_clouds)
             calls = self.level_inputs(point_state[:ENV_BATCH])["sa_gather_mlp"]
             for label, args in calls:
                 self.time_serving("sa_gather_mlp", f"{label} env", ENV_BATCH, args)
@@ -1887,7 +1973,37 @@ class Smoke:
         return {"kernels": rows}
 
 
-def main() -> int:
+def seed_range(text):
+    """"A-B" (inclusive), "A", or a comma-separated list of those -> a
+    tuple of seeds."""
+    seeds = []
+    for part in text.split(","):
+        lo, _, hi = part.partition("-")
+        seeds += range(int(lo), int(hi or lo) + 1)
+    return tuple(seeds)
+
+
+# --plain-on-card: the train kernels that can run their plain version on
+# the card in phase 10's update check, and the function each replaces
+PLAIN_ON_CARD = {"K5": ("_sa_train_kernels", "sa_train_reference"),
+                 "K6": ("_groupall_train_kernels", "groupall_train_reference")}
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--scale2-seeds", type=seed_range, metavar="A-B",
+                    help="run phase 10's scale-2 DDPG update check alone, on the batches "
+                         f"of these seeds (the full run uses {SCALE2_SEEDS[0]}-"
+                         f"{SCALE2_SEEDS[-1]}); also a list, as 5,17,27")
+    ap.add_argument("--plain-on-card", default="", metavar="K5,K6",
+                    help="with --scale2-seeds: these train kernels' plain versions run on "
+                         "the card in place of the kernels, to tell which kernel's rounding "
+                         "sets a card-vs-CPU event off")
+    args = ap.parse_args(argv)
+    plain = [k for k in args.plain_on_card.split(",") if k]
+    if any(k not in PLAIN_ON_CARD for k in plain) or (plain and not args.scale2_seeds):
+        ap.error(f"--plain-on-card takes some of {', '.join(PLAIN_ON_CARD)}, "
+                 "with --scale2-seeds")
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 1
@@ -1909,12 +2025,23 @@ def main() -> int:
             for line in text.splitlines():
                 if "registers" in line or "spill" in line or "error" in line:
                     log(f"[build] {name}: {line.strip()}")
+        if args.scale2_seeds:
+            from gaddpg_tpu_torch.ops import sa_train
+
+            for k in plain:
+                kernel, reference = PLAIN_ON_CARD[k]
+                setattr(sa_train, kernel, getattr(sa_train, reference))
+                log(f"[learner] scale 2: {k}'s plain version on the card ({reference})")
+            Smoke().scale2_card_vs_cpu(args.scale2_seeds)
+            print(card, flush=True)
+            return 0
         torch.manual_seed(0)
         gen = torch.Generator(device="cuda").manual_seed(0)
         with torch.no_grad():  # serving: no autograd graph anywhere
             smoke = Smoke()
             smoke.check_kernels(gen)
             smoke.check_fps(gen)
+            smoke.check_ball_query(torch.Generator(device="cuda").manual_seed(K2_SEED))
             smoke.check_k4(gen)
         smoke.check_train_kernels(gen)  # gradients: outside no_grad
         smoke.check_compaction(gen)

@@ -38,7 +38,7 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C entry -> (source, C symbol, argument types); the last argument is the stream
 SIGNATURES = {
     "fps": ("fps", "gaddpg_fps", (_P, _I, _I, _I, _P, _P)),
-    "ball_query": ("ball_query", "gaddpg_ball_query", (_P, _P, _I, _I, _I, _F, _I, _P, _P)),
+    "ball_query": ("ball_query", "gaddpg_ball_query", (_P, _P, _I, _I, _I, _F, _I, _I, _P, _P)),
     "sa_gather_mlp": ("sa_gather_mlp", "gaddpg_sa_gather_mlp", (_P,) * 11 + (_I,) * 8 + (_P,)),
     "mlp_maxpool": ("mlp_maxpool", "gaddpg_mlp_maxpool", (_P,) * 6 + (_I,) * 4 + (_P,)),
     "sa_train_layer": ("sa_train_stats", "gaddpg_sa_train_layer",

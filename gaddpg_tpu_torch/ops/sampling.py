@@ -15,6 +15,8 @@ rounded on its own, in the Pallas kernels' order and never through the
 the same indices bit for bit.
 """
 
+import functools
+
 import numpy as np
 import torch
 
@@ -107,12 +109,64 @@ def ball_query_reference(centers: torch.Tensor, xyz: torch.Tensor, radius: float
     return idx.to(torch.int32)
 
 
+# K2's launch (csrc/ball_query.cu): warps per block, and the centres a
+# block takes at most; fewer when the batch would leave SMs idle
+BALL_QUERY_WARPS = 8
+BALL_QUERY_CENTRES = 32
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(index: int) -> int:
+    """The SMs of CUDA device `index`, read once."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def ball_query_smem_bytes(centres: int, n: int, nsample: int) -> int:
+    """Shared memory of one K2 block that takes `centres` centres of a
+    cloud of n points (csrc/ball_query.cu `Layout`): a float4 per point
+    and per centre, one 4-byte hit mask per centre and 32-point chunk (the
+    chunk count made odd) and an nsample-slot row per half warp, each part
+    rounded to 16 bytes."""
+    r4 = lambda x: -(-x // 4) * 4
+    mstride = -(-n // 32) | 1
+    return 4 * (4 * n + 4 * centres + r4(centres * mstride) + 2 * BALL_QUERY_WARPS * r4(nsample))
+
+
+def check_ball_query_smem(s: int, n: int, nsample: int) -> int:
+    """Shared bytes of the smallest K2 block for S centres over clouds of
+    N points (one centre); raises ValueError when even that exceeds one
+    block's shared memory. Called before any launch."""
+    if s < 1 or n < 1 or nsample < 1:
+        raise ValueError(f"ball_query: need S, N, nsample >= 1; got {s}, {n}, {nsample}")
+    smem = ball_query_smem_bytes(1, n, nsample)
+    if smem > build.MAX_SMEM_BYTES:
+        raise ValueError(f"ball_query: N={n}, nsample={nsample} need {smem} bytes of shared "
+                         f"memory a block, more than {build.MAX_SMEM_BYTES}")
+    return smem
+
+
+def ball_query_layout(b: int, s: int, n: int, nsample: int, sms: int):
+    """(centres, shared bytes) of a K2 block for B clouds of N points with
+    S centres each on a card of `sms` SMs: a block takes one cloud and
+    BALL_QUERY_CENTRES of its centres, fewer when B * S centres would give
+    under two blocks an SM (groups of equal size); halved until the block
+    fits in shared memory."""
+    check_ball_query_smem(s, n, nsample)
+    per_block = max(1, min(BALL_QUERY_CENTRES, -(-b * s // (2 * sms))))
+    centres = -(-s // -(-s // per_block))
+    while ball_query_smem_bytes(centres, n, nsample) > build.MAX_SMEM_BYTES:
+        centres = -(-centres // 2)
+    return centres, ball_query_smem_bytes(centres, n, nsample)
+
+
 def ball_query(centers: torch.Tensor, xyz: torch.Tensor, radius: float,
                nsample: int) -> torch.Tensor:
     """(B, S, nsample) int32 ball-query indices of xyz (B, N, 3) around
     centers (B, S, 3), both float32.
 
-    CPU tensors: `ball_query_reference`. CUDA tensors: the K2 kernel."""
+    CPU tensors: `ball_query_reference`. CUDA tensors: the K2 kernel,
+    laid out by `ball_query_layout`; a cloud too large for one block's
+    shared memory raises ValueError."""
     _check_points("centers", centers)
     _check_points("xyz", xyz)
     b, s, _ = centers.shape
@@ -125,9 +179,10 @@ def ball_query(centers: torch.Tensor, xyz: torch.Tensor, radius: float,
     dev = build.kernel_device("ball_query", centers, xyz)
     if dev.type == "cpu":
         return ball_query_reference(centers, xyz, radius, nsample)
+    centres, _ = ball_query_layout(b, s, n, nsample, sm_count(dev.index))
     out = torch.empty((b, s, nsample), dtype=torch.int32, device=dev)
     build.launch("ball_query", dev, centers.data_ptr(), xyz.data_ptr(), b, s, n,
-                 _radius_sq(radius), nsample, out.data_ptr())
+                 _radius_sq(radius), nsample, centres, out.data_ptr())
     ball_query.launches += 1
     return out
 
