@@ -13,7 +13,11 @@ What is ported so far:
   (`agents.ddpg.make_ddpg_update`, `agents.bc.make_bc_update`);
 - the batched env: reset, DLS IK, contact physics, wrist-camera point
   state, retract and the goal-servo expert (`envs.grasp_env.PandaGraspEnv`
-  with `use_planner=False`, single-object scenes).
+  with `use_planner=False`, single-object scenes);
+- the online train loop: the replay ring on the device
+  (`replay.create_buffer`, `add_episodes`, `sample`, the reference's
+  `.npz` format), the batched rollout (`train.RolloutWorker`) and
+  `train.Trainer` (collect -> insert -> sample -> update).
 Their seven kernels (furthest point sampling, ball query, the two eval
 set-abstraction kernels, the two train-mode stats kernels and the
 physics contact scan) are hand-written CUDA C++ for sm_90a under

@@ -1,0 +1,281 @@
+"""Fixed-shape replay ring buffer (counterpart of gaddpg_tpu/replay/buffer.py).
+
+Semantics mirror `BaseMemory` (reference: core/replay_memory.py), as the
+JAX package keeps them:
+- flat transition storage with an `episode_map` pointing every index at
+  its episode's last transition (reference: :230),
+- discounted-return backfill at insert time (reference: :223-228),
+- `sample` draws uniform indices in [episode_max_len, upper) and builds
+  next-state views via `min(episode_map[i], i+1)` (reference: :251-266),
+- remaining-time feature = timestep[episode_end] + 1 - timestep[i]
+  (reference: :266),
+- optional on-policy goal relabelling from stored hand poses
+  (reference: :233-249).
+
+The storage is a dataclass of tensors on one device; the three cursors
+are host integers. The JAX package inserts a batch of episodes through a
+scan of single-episode inserts. Here `add_episodes` copies the (E, T)
+validity mask to the host once, runs the sequential ring rule there
+(cheap: E integers), and writes every field with one indexed store whose
+rows keep the scan's outcome: where a later episode of the same call
+overwrites a slot, the later one is what the store writes.
+"""
+
+import dataclasses
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+
+from gaddpg_tpu_torch.geometry.se3 import pack_pose_rot_first, se3_inverse
+from gaddpg_tpu_torch.utils.precision import f32_matmuls, resolve_device
+
+
+@dataclasses.dataclass
+class ReplayBuffer:
+    # transition storage
+    point_state: torch.Tensor      # (S, 4, P) point cloud state
+    image_state: torch.Tensor      # (S, 5, H, W) RGBDM; (S, 1, 1, 1) disabled
+    action: torch.Tensor           # (S, 6)
+    expert_action: torch.Tensor    # (S, 6)
+    reward: torch.Tensor           # (S,)
+    returns: torch.Tensor          # (S,)
+    terminal: torch.Tensor         # (S,)
+    timestep: torch.Tensor         # (S,)
+    state_pose: torch.Tensor       # (S, 4, 4) hand pose in world
+    goal: torch.Tensor             # (S, 7) [q, t] grasp goal in hand frame
+    expert_flags: torch.Tensor     # (S,)
+    perturb_flags: torch.Tensor    # (S,)
+    collide: torch.Tensor          # (S,)
+    collide_future: torch.Tensor   # (S,) any collision at/after this step
+    grasp: torch.Tensor            # (S,)
+    target_idx: torch.Tensor       # (S,)
+    episode_map: torch.Tensor      # (S,) int64 index of episode end
+    # cursors (host integers)
+    cur_idx: int = 0               # next write position
+    filled: int = 0                # high-water mark of live data
+    total_env_step: int = 0
+
+    @property
+    def size(self) -> int:
+        return self.point_state.shape[0]
+
+    @property
+    def is_full(self) -> bool:
+        return self.filled >= self.size
+
+    @property
+    def device(self) -> torch.device:
+        return self.point_state.device
+
+    @property
+    def nbytes(self) -> int:
+        return sum(getattr(self, f.name).numel() * getattr(self, f.name).element_size()
+                   for f in dataclasses.fields(self) if f.name in TENSOR_FIELDS)
+
+
+TENSOR_FIELDS = tuple(f.name for f in dataclasses.fields(ReplayBuffer)
+                      if f.name not in ("cur_idx", "filled", "total_env_step"))
+
+
+def create_buffer(size: int, num_points: int = 1030, image_shape=None,
+                  device="cuda") -> ReplayBuffer:
+    """An empty float32 ring of `size` transitions on `device` (raises
+    without a card unless device="cpu"). `image_shape` (C, H, W) enables
+    RGBDM storage, in bfloat16 as the JAX package stores it."""
+    device = resolve_device(device)
+    f = lambda *shape: torch.zeros(shape, dtype=torch.float32, device=device)  # noqa: E731
+    return ReplayBuffer(
+        point_state=f(size, 4, num_points),
+        image_state=(torch.zeros((size, *image_shape), dtype=torch.bfloat16, device=device)
+                     if image_shape else f(size, 1, 1, 1)),
+        action=f(size, 6),
+        expert_action=f(size, 6),
+        reward=f(size),
+        returns=f(size),
+        terminal=f(size),
+        timestep=f(size),
+        state_pose=torch.eye(4, dtype=torch.float32, device=device).repeat(size, 1, 1),
+        goal=f(size, 7),
+        expert_flags=f(size),
+        perturb_flags=f(size),
+        collide=f(size),
+        collide_future=f(size),
+        grasp=f(size),
+        target_idx=f(size),
+        episode_map=torch.zeros(size, dtype=torch.int64, device=device),
+    )
+
+
+_EP_FIELDS = (
+    "point_state", "image_state", "action", "expert_action", "reward",
+    "terminal", "timestep", "state_pose", "goal", "expert_flags",
+    "perturb_flags", "collide", "grasp", "target_idx",
+)
+
+
+def _ring_rows(buf: ReplayBuffer, valid: np.ndarray):
+    """The sequential ring rule of the JAX `add_episode`, run on the host
+    over E episodes: -> (source rows into the flattened (E*T) episodes,
+    their compacted positions, destination slots, episode-end slots, the
+    new cursors). A later episode's write to a slot replaces an earlier
+    one's, as in the scan; rows whose slot lies past the ring are
+    dropped."""
+    e_count, t_count = valid.shape
+    size = buf.size
+    cur, filled, total = buf.cur_idx, buf.filled, buf.total_env_step
+    src, pos, dst, end = [], [], [], []
+    for e in range(e_count):
+        live = np.flatnonzero(valid[e])
+        n = len(live)
+        start = 0 if cur + n > size else cur
+        src.append(e * t_count + live)
+        pos.append(e * t_count + np.arange(n))
+        dst.append(start + np.arange(n))
+        end.append(np.full(n, start + n - 1))
+        cur = start + n
+        filled = max(filled, cur)
+        total += n
+    src, pos, dst, end = (np.concatenate(a) if a else np.zeros(0, np.int64)
+                          for a in (src, pos, dst, end))
+    keep = dst < size
+    src, pos, dst, end = src[keep], pos[keep], dst[keep], end[keep]
+    # the last write to each slot wins
+    _, last = np.unique(dst[::-1], return_index=True)
+    rows = np.sort(len(dst) - 1 - last)
+    return src[rows], pos[rows], dst[rows], end[rows], (cur, filled, total)
+
+
+def _compact_sequences(values: torch.Tensor, valid: torch.Tensor, gamma: float):
+    """Per episode (rows of (E, T)): the rewards and collisions compacted
+    valid-first, then the discounted returns backfilled from the last
+    live step and the reverse running max of collisions."""
+    e_count, t_count = valid.shape
+    order = torch.argsort((~valid).to(torch.int8), dim=1, stable=True)
+    n_valid = valid.sum(dim=1, keepdim=True)
+    live = torch.arange(t_count, device=valid.device)[None] < n_valid
+    out = {}
+    for k, v in values.items():
+        out[k] = torch.where(live, torch.gather(v, 1, order), 0.0)
+    rew = out.pop("reward")
+    returns = torch.zeros_like(rew)
+    carry = torch.zeros(e_count, dtype=rew.dtype, device=rew.device)
+    for i in range(t_count - 1, -1, -1):
+        r = rew[:, i] + gamma * carry
+        carry = torch.where(live[:, i], r, 0.0)
+        returns[:, i] = carry
+    out["returns"] = returns
+    if "collide" in out:
+        col = out.pop("collide")
+        out["collide_future"] = torch.flip(torch.cummax(torch.flip(col, [1]), dim=1).values, [1])
+    return out
+
+
+@torch.no_grad()
+def add_episodes(buf: ReplayBuffer, episodes: Dict[str, torch.Tensor], valid: torch.Tensor,
+                 gamma: float = 0.95) -> ReplayBuffer:
+    """Insert a batch of fixed-length episodes (E, T, ...) masked by
+    `valid` (E, T), in env order, into `buf` in place; returns it.
+
+    Per episode the valid transitions are compacted to the front,
+    preserving their order; the discounted return is backfilled from the
+    last valid reward; `collide_future[i]` is the largest collision flag
+    in [i, episode end]; `episode_map` points at the episode's final
+    slot. An episode never straddles the ring boundary: when it would
+    not fit in [cur_idx, size) its write restarts at 0 (reference:
+    core/replay_memory.py:193-199). Fields absent from `episodes` (e.g.
+    image_state in point-cloud runs) keep their contents."""
+    valid = valid.to(buf.device, torch.bool)
+    e_count, t_count = valid.shape
+    src, pos, dst, end, cursors = _ring_rows(buf, valid.cpu().numpy())
+    dev = buf.device
+    src, pos, dst, end = (torch.as_tensor(a, dtype=torch.int64).to(dev)
+                          for a in (src, pos, dst, end))
+
+    seq = {"reward": episodes["reward"].to(dev, torch.float32)}
+    if "collide" in episodes:
+        seq["collide"] = episodes["collide"].to(dev, torch.float32)
+    derived = _compact_sequences(seq, valid, gamma)
+
+    for k in _EP_FIELDS:
+        if k in episodes:
+            x = episodes[k]
+            flat = x.reshape(e_count * t_count, *x.shape[2:])
+            target = getattr(buf, k)
+            target[dst] = flat.to(dev)[src].to(target.dtype)
+    for k, v in derived.items():
+        target = getattr(buf, k)
+        target[dst] = v.reshape(-1)[pos].to(target.dtype)
+    buf.episode_map[dst] = end
+    buf.cur_idx, buf.filled, buf.total_env_step = cursors
+    return buf
+
+
+def add_episode(buf: ReplayBuffer, episode: Dict[str, torch.Tensor], valid: torch.Tensor,
+                gamma: float = 0.95) -> ReplayBuffer:
+    """Insert one fixed-length episode (T, ...) masked by `valid` (T,)."""
+    return add_episodes(buf, {k: v[None] for k, v in episode.items()}, valid[None], gamma)
+
+
+def upper_idx(buf: ReplayBuffer) -> int:
+    """Exclusive upper bound of live data (high-water mark)."""
+    return max(buf.filled, 1)
+
+
+@torch.no_grad()
+@f32_matmuls
+def sample(buf: ReplayBuffer, batch_size: int, episode_max_len: int = 20,
+           onpolicy_goal: bool = False, generator: Optional[torch.Generator] = None,
+           idx: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
+    """A uniform batch with next-state indexing (reference: :166-176,
+    :251-272). The indices are drawn in [lo, upper) with lo =
+    min(episode_max_len, upper - 1), from `generator` (a generator of the
+    buffer's device; None = torch's default one), unless given as `idx`
+    (batch_size,) integers."""
+    upper = upper_idx(buf)
+    lo = min(episode_max_len, upper - 1)
+    dev = buf.device
+    if idx is None:
+        idx = torch.randint(0, max(upper - lo, 1), (batch_size,), generator=generator,
+                            device=dev) + lo
+    else:
+        idx = torch.as_tensor(idx).to(dev, torch.int64)
+    ep_end = buf.episode_map[idx]
+    nxt = torch.minimum(ep_end, idx + 1)
+
+    goal = buf.goal[idx]
+    next_goal = buf.goal[nxt]
+    if onpolicy_goal:
+        # HER-style relabel for non-expert steps: goal = pose_now^-1 @ pose_end
+        end_pose = buf.state_pose[ep_end]
+        rel = se3_inverse(buf.state_pose[idx]) @ end_pose
+        rel_n = se3_inverse(buf.state_pose[nxt]) @ end_pose
+        mask = (buf.expert_flags[idx] == 0.0)[:, None]
+        goal = torch.where(mask, pack_pose_rot_first(rel), goal)
+        next_goal = torch.where(mask, pack_pose_rot_first(rel_n), next_goal)
+
+    out = {}
+    if buf.image_state.shape[-1] > 1:  # image storage enabled
+        out = {"image_state": buf.image_state[idx].to(torch.float32),
+               "next_image_state": buf.image_state[nxt].to(torch.float32)}
+    out.update({
+        "point_state": buf.point_state[idx],
+        "next_point_state": buf.point_state[nxt],
+        "action": buf.action[idx],
+        "expert_action": buf.expert_action[idx],
+        "next_action": buf.action[nxt],
+        "reward": buf.reward[idx],
+        "return": buf.returns[idx],
+        "next_return": buf.returns[nxt],
+        "terminal": buf.terminal[idx],
+        # remaining timesteps (reference: core/replay_memory.py:266)
+        "time": buf.timestep[ep_end] + 1.0 - buf.timestep[idx],
+        "goal": goal,
+        "next_goal": next_goal,
+        "expert_flags": buf.expert_flags[idx],
+        "perturb_flags": buf.perturb_flags[idx],
+        "collide": buf.collide[idx],
+        "collide_future": buf.collide_future[idx],
+        "batch_idx": idx,
+    })
+    return out

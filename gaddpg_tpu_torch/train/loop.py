@@ -1,0 +1,193 @@
+"""The online training loop (counterpart of gaddpg_tpu/train/loop.py).
+
+Orchestrates what the reference spreads over 5 Ray actor types
+(reference: core/train_online.py:357-574, core/trainer.py): rollout ->
+replay insert on the device -> K agent updates, with explore/noise
+schedules keyed on the update step. One process, one card; the host
+work is the schedule arithmetic, the ring's cursors and logging.
+"""
+
+import time
+
+import torch
+
+from gaddpg_tpu_torch import replay
+from gaddpg_tpu_torch.agents.bc import make_bc_update
+from gaddpg_tpu_torch.agents.ddpg import make_ddpg_update
+from gaddpg_tpu_torch.agents.state import create_agent_state
+from gaddpg_tpu_torch.envs.assets import library_from_index
+from gaddpg_tpu_torch.envs.grasp_env import PandaGraspEnv
+from gaddpg_tpu_torch.train.checkpoints import save_agent
+from gaddpg_tpu_torch.train.config import TrainConfig
+from gaddpg_tpu_torch.train.metrics import MetricLogger, ObjectPerformance
+from gaddpg_tpu_torch.train.rollout import RolloutWorker
+from gaddpg_tpu_torch.train.schedules import explore_schedule, noise_schedule
+from gaddpg_tpu_torch.utils.precision import resolve_device
+
+
+class Trainer:
+    def __init__(self, cfg: TrainConfig, lib=None, env=None, mesh=None, device="cuda"):
+        """Everything on `device` (the card unless device="cpu"; raises
+        without one): the env, the agent state (initialised from
+        cfg.seed), the replay ring(s) and a generator seeded with
+        cfg.seed for the rollout, sampling and update draws. `mesh`
+        (multi-GPU data parallel) is not ported yet and must be None."""
+        if mesh is not None:
+            raise NotImplementedError("a device mesh (multi-GPU data parallel) is not ported "
+                                      "yet; pass mesh=None")
+        self.device = resolve_device(device)
+        self.cfg = cfg
+        self.lib = lib if lib is not None else library_from_index(cfg.index_file,
+                                                                  cfg.index_split)
+        self.env = env if env is not None else PandaGraspEnv(cfg.env, self.lib, self.device)
+        self.worker = RolloutWorker(self.env, cfg.agent, cfg, device=self.device)
+        self.generator = torch.Generator(device=self.device).manual_seed(cfg.seed)
+
+        num_pts = cfg.env.uniform_num_pts + 6
+        self.agent_state = create_agent_state(
+            cfg.agent, npoints=num_pts, generator=torch.Generator().manual_seed(cfg.seed),
+            device=self.device)
+        self.update = (make_bc_update if cfg.policy == "BC"
+                       else make_ddpg_update)(cfg.agent, self.device)
+
+        self.buffer = replay.create_buffer(cfg.buffer_size, num_points=num_pts,
+                                           device=self.device)
+        self.online_buffer = None
+        if cfg.onpolicy and cfg.online_buffer_size:
+            self.online_buffer = replay.create_buffer(cfg.online_buffer_size,
+                                                      num_points=num_pts, device=self.device)
+        self.metrics = MetricLogger(cfg.output_dir)
+        self.obj_perf = ObjectPerformance(self.lib.names)
+
+    @property
+    def update_step(self) -> int:
+        return int(self.agent_state.update_step)
+
+    # ------------------------------------------------------------------
+    def collect(self, draws=None):
+        """One rollout wave across all envs; insert episodes into replay.
+        `draws`: the rollout's draws as tensors (`RolloutWorker.rollout`);
+        None draws from the trainer's generator."""
+        cfg = self.cfg
+        explore = explore_schedule(self.update_step, cfg)
+        noise = noise_schedule(self.update_step, cfg)
+        episodes, valid, rewards, stats = self.worker.rollout(
+            self.agent_state, explore, noise, self.generator, draws)
+        # BC keeps only successful expert demos
+        # (reference: core/replay_memory.py:214-215)
+        if not cfg.rl:
+            keep = (rewards > 0.5) | stats["explore_env"]
+            if cfg.dagger_success_filter:
+                # success-filtered DAgger: explore waves only aggregate
+                # when the relabelled episode succeeds
+                keep = rewards > 0.5
+            if cfg.demo_collision_filter:
+                keep = keep & ~stats["collided"]
+            valid = valid & keep[:, None]
+        gamma = cfg.agent.gamma
+        if self.online_buffer is not None:
+            explore_env = stats["explore_env"][:, None]
+            replay.add_episodes(self.buffer, episodes, valid & ~explore_env, gamma)
+            replay.add_episodes(self.online_buffer, episodes, valid & explore_env, gamma)
+        else:
+            replay.add_episodes(self.buffer, episodes, valid, gamma)
+
+        valid_scene = stats["valid_scene"]
+        self.obj_perf.update(episodes["target_idx"][:, 0].cpu().numpy(),
+                             rewards.cpu().numpy(), valid_scene.cpu().numpy())
+        n_scenes = max(float(valid_scene.sum()), 1.0)
+        return {
+            "rollout_success": float(stats["success"].sum()) / n_scenes,
+            "explore_frac": float(explore),
+            "valid_scene_frac": float(valid_scene.float().mean()),
+            "collide_frac": float((stats["collided"] & valid_scene).sum()) / n_scenes,
+            "buffer_idx": int(self.buffer.cur_idx),
+            "env_steps": int(self.buffer.total_env_step),
+        }
+
+    # ------------------------------------------------------------------
+    def train_iter(self, draws=None):
+        """K agent updates from the replay (reference: core/trainer.py:202-293).
+
+        With an on-policy buffer, each update batch mixes
+        int(batch_size * online_buffer_ratio) of the agent's own rollouts
+        into the expert batch (reference: core/trainer.py:214-225).
+        `draws`: one dict per update with the sampled indices "idx" (and
+        "online_idx" when mixing) and the DDPG target-smoothing draws
+        "noise" (B, 6); None draws from the trainer's generator."""
+        cfg = self.cfg
+        if replay.upper_idx(self.buffer) < cfg.batch_size:
+            return {}
+        n_on = 0
+        if self.online_buffer is not None and cfg.online_buffer_ratio > 0:
+            n_on = int(cfg.batch_size * cfg.online_buffer_ratio)
+            if replay.upper_idx(self.online_buffer) < n_on:
+                n_on = 0
+        ep_len = min(cfg.max_steps, 8)
+        last = {}
+        for i in range(cfg.updates_per_iter):
+            d = {} if draws is None else draws[i]
+            batch = replay.sample(self.buffer, cfg.batch_size, episode_max_len=ep_len,
+                                  onpolicy_goal=cfg.self_supervision,
+                                  generator=self.generator, idx=d.get("idx"))
+            if n_on:
+                on = replay.sample(self.online_buffer, n_on, episode_max_len=ep_len,
+                                   onpolicy_goal=cfg.self_supervision,
+                                   generator=self.generator, idx=d.get("online_idx"))
+                batch = {k: torch.cat([batch[k], on[k]], dim=0) for k in batch}
+            if cfg.policy == "BC":
+                last = self.update(self.agent_state, batch)
+            else:
+                noise = d.get("noise")
+                last = self.update(self.agent_state, batch, self.generator,
+                                   None if noise is None else noise.to(self.device))
+        return {k: float(v) for k, v in last.items()}
+
+    # ------------------------------------------------------------------
+    def run(self, max_iters=None, log_every=None):
+        """Full online loop (reference: core/train_online.py:531-574)."""
+        cfg = self.cfg
+        log_every = log_every or cfg.log_interval
+        it = 0
+        while self.update_step < cfg.max_epoch:
+            it += 1
+            t0 = time.time()
+            roll_stats = self.collect()
+            t_roll = time.time() - t0
+            t0 = time.time()
+            train_stats = self.train_iter()
+            t_train = time.time() - t0
+
+            if it % log_every == 0:
+                scalars = dict(roll_stats)
+                scalars.update(train_stats)
+                scalars.update(rollout_time=t_roll, train_time=t_train,
+                               update_step=self.update_step)
+                self.metrics.log(self.update_step, scalars)
+            if self.update_step and self.update_step % cfg.save_interval == 0:
+                save_agent(self.agent_state, cfg.output_dir)
+            if max_iters and it >= max_iters:
+                break
+        save_agent(self.agent_state, cfg.output_dir)
+        return self.obj_perf
+
+    # ------------------------------------------------------------------
+    def evaluate(self, episodes: int = 1, scenes=None):
+        """Policy evaluation waves on freshly
+        randomised scenes -> (success rate over valid scenes, per-object
+        table). A fixed scene set (`scenes`) needs envs/scenes.py, which
+        is not ported yet."""
+        if scenes is not None:
+            raise NotImplementedError("evaluation on a fixed scene set needs envs/scenes.py, "
+                                      "which is not ported yet")
+        total, ok = 0, 0
+        perf = ObjectPerformance(self.lib.names)
+        for _ in range(episodes):
+            out = self.worker.evaluate(self.agent_state, self.generator)
+            v = out["valid_scene"].cpu().numpy()
+            r = out["success"].cpu().numpy()
+            perf.update(out["obj_idx"].cpu().numpy(), r, v)
+            total += int(v.sum())
+            ok += int((r[v > 0] > 0.5).sum())
+        return ok / max(total, 1), perf
+
