@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch port (`gaddpg_tpu_torch`) on one CUDA card.
 
     python3 chip_smoke.py [--scale2-seeds A-B [--plain-on-card K5,K6]]
-                          [--k5-scale EPS,...] [--loop]
+                          [--k5-scale EPS,...] [--loop] [--planner]
 
 Phases, each of which must pass:
   1. build the CUDA kernels of K1 FPS, K2 ball query, K3 eval SA
@@ -74,7 +74,16 @@ Phases, each of which must pass:
      K4 kernel may appear), peak memory, and K5/K6 per level against
      their plain versions and bounds, with K5's distinct-row share, on
      synthetic clouds and on bench.py's learner batch, and K3-K6 at the
-     scale 2 widths;
+     scale 2 widths; then `AgentConfig(compute_dtype="bfloat16")` (the
+     encoders' FC Dense layers in bfloat16, everything else float32):
+     select_action at B = 1 and 1024 and DDPG and BC updates at 256 x 1030
+     (launches as in float32, times, finite metrics, float32 parameters),
+     and a B=8 DDPG update card vs CPU from a common state, each output
+     within a tenth of the CPU's own bfloat16-against-float32 gap or 4
+     times the CPU update's spread over 3 perturbations of the point
+     states by 2^-20 relative, the size of K5's and K6's 3xTF32 departure
+     (tests/test_torch_bf16.py's rule, whose one-ulp nudges leave the
+     CPU's bfloat16 update unchanged);
   7. hold K7 (the contact scan) against its plain version on the card
      over 60 substeps at batch 8 and over 75, 150 and 200 substeps at
      batch 64 and 1024, on contact-rich states (objects
@@ -97,10 +106,11 @@ Phases, each of which must pass:
      gives the plain version on the same batch, rank by rank
      (check_contact_scan says why). A B=64 launch must give the first
      64 envs of the B=1024 launch bit for bit;
-  8. drive the env path, `PandaGraspEnv(EnvParams(use_planner=False),
+  8. drive the env path, `PandaGraspEnv(EnvParams(),
      library_from_index("ycb", "train"))` at batch 1024 (bench.py's env
-     count): `reset` from a seeded generator, 20 steps of the goal-servo
-     expert, `retract_batched`, with the counters set to 0 before and read
+     half: the CHOMP planner expert): `reset` from a seeded generator (a
+     plan per reset try), 20 steps of the planner expert (plan_step 20
+     after them), `retract_batched`, with the counters set to 0 before and read
      after each call (K7 2x in reset, one 200-substep settle per try; 1x
      per step; 11x in retract, the close and 10 lift steps); every value
      finite, every object below z = 1.0 unless the gripper carries it
@@ -111,8 +121,20 @@ Phases, each of which must pass:
      median of 7 after a warm-up, bench.py's constant action), its device
      busy time, idle share and top device activities (torch.profiler),
      `reset` and `retract_batched`, and K7 against its plain version and
-     its bound (CUDA events) at n = 75 (B = 1024 and 64) and n = 200;
-  9. run the same 8 scenes through `reset_scene`, 3 `step_batched` calls
+     its bound (CUDA events) at n = 75 (B = 1024 and 64) and n = 200 (K7's
+     live states come from a goal-servo rollout); `plan_to_goal` on the
+     card against the CPU at B = 8 and 1024 on the reset's planner inputs
+     (PLAN_TOL_CARD's rule: each plan within 1e-3 rad of the CPU's with
+     `ok` equal, or within 4 times the CPU's own spread under one-ulp
+     nudges of all its inputs, or on another near-tied IK branch with the
+     reached hand pose within 1 mm; at most 3% of the batch left, each
+     reaching its pose within 1 mm); `replan`'s
+     time; and examples/minimal_rollout.py's contract: EnvParams() on
+     box_asset(0.05, 0.05, 0.14, mass=0.2), seeds 0-7 from CPU generators,
+     the card's lift count within one of the CPU's on the same scenes (the
+     JAX package itself lifts 6 of 8 with the planner,
+     tests/test_torch_env_contract.py). --planner runs this phase alone;
+  9. run 8 scenes of the goal-servo env through `reset_scene`, 3 `step_batched` calls
      (each from the CPU's state carried over) and `retract_batched` on the
      card and on the CPU with the same random draws (after it, phases 5
      and 6 time K3 at B=1024 and K5 at B=256 once more, on the
@@ -143,8 +165,8 @@ Phases, each of which must pass:
      versions on the card there; --k5-scale EPS,... runs it with K5's
      pooled output scaled by (1 + EPS), the check's sensitivity;
  11. the online train loop: `Trainer(load_config(overrides={"num_envs":
-     1024, "use_planner": False, ...}, policy="DDPG"), lib=
-     library_from_index("ycb", "train"))` at TrainConfig's defaults
+     1024, ...}, policy="DDPG"), lib=library_from_index("ycb", "train"))`
+     at TrainConfig's defaults, its EnvParams() the CHOMP planner
      (batch 256 x 1030 points, 4 updates, a 100,000-transition ring on the
      card): one `collect` and one `train_iter`, the counters set to 0
      before each and read after (every kernel launched, each as many times
@@ -157,7 +179,10 @@ Phases, each of which must pass:
      dryrun's env sizes on the card and on the CPU from the same draws: flags, masks, episode_map, cursors and
      sampled indices equal, each env step within phase 9's rule from the
      card's own input state, and the train_iter from a common ring and
-     state within phase 6's update rule. --loop runs this phase alone.
+     state within phase 6's update rule; then the same B=8 collect with
+     the planner and the DAgger replan, each reset try's plans and each
+     DAgger replan held to phase 8's planner rule against the CPU's
+     `replan` from the same state. --loop runs this phase alone.
 
 Prints the card's name and power limit (nvidia-smi), then one JSON line
 with every kernel's numbers (launches: K1-K4 over the phase-3 calls, K5/K6
@@ -291,6 +316,56 @@ HELD_RADIUS = 0.15  # m, hand origin to the centre of an object in its fingers
 # pixels along the object's silhouette; shares of up to 0.041 of the
 # sampled points without a match were measured on one H100
 POINT_SHARE_BOUND = 0.10
+# the CHOMP planner card vs CPU. The plan is the end of 50 DLS iterations
+# and 30 steps of a descent preconditioned by M^-1 (entries up to 70), and
+# the card rounds its transcendentals and fused products otherwise than
+# the CPU at every one of them: calm envs differ by up to 9.6e-4 rad where
+# the CPU's own one-ulp spread stays below 1e-6 (one H100 at 700 W), under
+# the arm servo's reach in one step. Each env's plan is within
+# PLAN_TOL_CARD of the CPU's with `ok` equal; or, where one-ulp nudges of
+# all its planner inputs (joints, goal, target spheres) spread the CPU's
+# own plan past PLAN_TOL_CARD (a hinge of the obstacle cost flips in the
+# descent), within PLAN_CHAOS times that spread with `ok` equal; or the
+# standoff solve landed on another near-tied IK branch (ROADMAP.md Queue 3
+# not fault (b)) and the reached hand pose is within BRANCH_POSE_TOL with
+# `ok` equal. The envs left (a descent the card's rounding carried further
+# than the nudges reach: 3 of 1024 in one run; an `ok` that differs) may
+# make up CHAOTIC_SHARE of the batch, each with its reached hand pose
+# within BRANCH_POSE_TOL.
+PLAN_BATCHES = (8, 1024)
+PLAN_TOL_CARD = 1e-3
+PLAN_CHAOS = CHAOS_FACTOR
+BRANCH_JOINT_TOL = 1e-3  # rad: two standoff solutions this far apart are two branches
+BRANCH_POSE_TOL = 1e-3   # m
+# examples/minimal_rollout.py's contract (CLAUDE.md): EnvParams(), the box
+# of box_asset(0.05, 0.05, 0.14, mass=0.2), seeds 0-7. With the CHOMP
+# expert the JAX package itself lifts 6 of the 8 scenes its sample_scene
+# draws for seeds 0-7, not 7 (tests/test_torch_env_contract.py, which holds
+# the port to its outcomes). On the card the scenes of seeds 0-7 are the
+# CPU's (CPU generators), but the reset's IK start may take another
+# near-tied solution of the same hand pose (ROADMAP.md Queue 3 not fault
+# (b)), or a scene candidate's validity may tie and the reset keep another
+# try, and the plan and the grasp follow (the reset itself is held card vs
+# CPU try by try in phase 11's B=8 planner loop). So the CPU plans and runs
+# each episode again from the card's own reset state: the plans by
+# `plan_rule`, and each seed's outcome equal to the card's, or, where it
+# is not, one of ULP_PROBES CPU episodes from one-ulp nudges of that state
+# (arm joints, object pose) must reach the card's
+CONTRACT_SEEDS = tuple(range(8))
+# compute_dtype="bfloat16" card vs CPU (tests/test_torch_bf16.py's rule,
+# its perturbation the size of the card's float32 departure): each output
+# within BF16_GAP_SHARE of the CPU's own bfloat16-against-float32 gap, or
+# BF16_SPREAD_FACTOR times the CPU bfloat16 update's spread over
+# BF16_NUDGES perturbations of the point states by a relative BF16_NUDGE.
+# One-ulp nudges leave the CPU's bfloat16 update unchanged (its FC products
+# round to the same bfloat16 values), while K5 and K6 on the card (3xTF32:
+# each operand split within 2^-22 of its float32 value) move the SA
+# features by about 2^-20 relative, enough to flip some roundings
+BF16_GAP_SHARE = 0.1
+BF16_SPREAD_FACTOR = 4.0
+BF16_NUDGES = 3
+BF16_NUDGE = 2.0 ** -20
+BF16_BATCHES = (1, 1024)
 
 
 def log(msg):
@@ -654,6 +729,71 @@ def nudge_state(state, nudge):
     """state with its object positions moved by one ulp."""
     state.phys.obj.pos = nudge(state.phys.obj.pos)
     return state
+
+
+def cat_states(states):
+    """Env states (dataclasses of tensors, nested) joined along the batch."""
+    first = states[0]
+    return dataclasses.replace(first, **{
+        f.name: cat_states(vals) if dataclasses.is_dataclass(vals[0]) else torch.cat(vals)
+        for f in dataclasses.fields(first) for vals in ([getattr(x, f.name) for x in states],)})
+
+
+def one_ulp(t, gen):
+    """`t` with every element moved by one ulp, up or down at random."""
+    return torch.nextafter(t, t + torch.randn(t.shape, generator=gen, device=t.device).sign())
+
+
+def nudge_env_state(state, gen):
+    """Env states with the arm's seven joints and the object's position
+    and orientation each moved by one ulp (`one_ulp`)."""
+    q = state.phys.arm.q.clone()
+    q[:, :7] = one_ulp(q[:, :7], gen)
+    obj = state.phys.obj
+    phys = dataclasses.replace(
+        state.phys, arm=dataclasses.replace(state.phys.arm, q=q),
+        obj=dataclasses.replace(obj, pos=one_ulp(obj.pos, gen), quat=one_ulp(obj.quat, gen)))
+    return dataclasses.replace(state, phys=phys)
+
+
+def plan_rule(label, plan_g, ok_g, plan_c, ok_c, probe):
+    """The planner's card-vs-CPU rule (PLAN_TOL_CARD's comment) on
+    (B, PLAN_STEPS, 7) plans and (B,) flags, CPU tensors. `probe(envs)`
+    gives the CPU's plans and flags, (P, n, S, 7) and (P, n), from
+    ULP_PROBES one-ulp nudges of those envs' planner inputs. Returns
+    {"chaotic": [...], "branch": [...], "left": [...]} of env indices;
+    raises where the rule does not hold."""
+    from gaddpg_tpu_torch.expert.chomp import APPROACH_STEPS
+    from gaddpg_tpu_torch.robot.panda import fk_hand
+
+    b = len(ok_c)
+    err = (plan_g - plan_c).abs().amax(dim=(1, 2))
+    k = APPROACH_STEPS - 1
+    branch = (plan_g[:, k] - plan_c[:, k]).abs().amax(dim=1) > BRANCH_JOINT_TOL
+    reach = (fk_hand(plan_g[:, -1])[:, :3, 3] - fk_hand(plan_c[:, -1])[:, :3, 3]).norm(dim=-1)
+    off = ((err > PLAN_TOL_CARD) | (ok_g != ok_c)) & ~branch
+    chaotic = torch.zeros(b, dtype=torch.bool)
+    if off.any():
+        envs = off.nonzero()[:, 0]
+        plans, _ = probe(envs)
+        spread = (plans - plan_c[envs]).abs().amax(dim=(0, 2, 3))
+        chaotic[envs] = (spread > PLAN_TOL_CARD) & (err[envs] <= PLAN_CHAOS * spread) & (
+            ok_g[envs] == ok_c[envs])
+    left = off & ~chaotic
+    first = lambda m: m.nonzero()[:, 0][:10].tolist()  # noqa: E731
+    if branch.any() and ((reach[branch] > BRANCH_POSE_TOL).any()
+                         or not torch.equal(ok_g[branch], ok_c[branch])):
+        raise AssertionError(f"{label}: envs {first(branch)} on another IK branch reach "
+                             f"{reach[branch][:10].tolist()} m apart, or their ok differs")
+    if left.sum() > CHAOTIC_SHARE * b or (reach[left] > BRANCH_POSE_TOL).any():
+        raise AssertionError(
+            f"{label}: {int(left.sum())} of {b} envs off the plan rule (at most "
+            f"{CHAOTIC_SHARE:.0%}), first {first(left)}: plans off by "
+            f"{err[left][:10].tolist()}, ok {ok_g[left][:10].tolist()} vs "
+            f"{ok_c[left][:10].tolist()}, reached poses {reach[left][:10].tolist()} m apart")
+    return {"chaotic": first(chaotic), "n_chaotic": int(chaotic.sum()),
+            "branch": first(branch), "n_branch": int(branch.sum()),
+            "left": first(left), "n_left": int(left.sum()), "largest": err.max().item()}
 
 
 def nn_miss_share(pts, ref, tol=1e-4):
@@ -1391,13 +1531,14 @@ class Smoke:
             f"update(s) max_abs_err={err:.3e}, running statistics max_abs_err={serr:.3e}, "
             f"parameter and target moves within bounds ok")
 
-    def b8_learner(self, feature_dim):
+    def b8_learner(self, feature_dim, compute_dtype="float32"):
         """(config, card update, CPU update, CPU state) of the B=8 card-vs-CPU
         updates, with the Q2 hard copy and the collision terms on."""
         from gaddpg_tpu_torch.agents import AgentConfig, create_agent_state, make_ddpg_update
 
         cfg = AgentConfig(feature_dim=feature_dim, target_update_interval=1,
-                          collision_aux_weight=0.1, collision_demo_discount=0.5)
+                          collision_aux_weight=0.1, collision_demo_discount=0.5,
+                          compute_dtype=compute_dtype)
         state_cpu = create_agent_state(cfg, generator=torch.Generator().manual_seed(2),
                                        device="cpu")
         return cfg, make_ddpg_update(cfg), make_ddpg_update(cfg, device="cpu"), state_cpu
@@ -1900,12 +2041,16 @@ class Smoke:
             return out
 
         state, obs = counted("reset", RESET_K7, lambda: env.reset(ENV_BATCH, gen))
-        valid = state.valid_scene
+        valid, reset_state = state.valid_scene, state
         for i in range(ENV_STEPS):
             state, obs, _, done, info = counted(
                 f"step {i}", STEP_K7,
                 lambda: env.step_batched(state, env.expert_action(state), gen))
         stepped, stepped_obs = state, obs
+        if env.p.use_planner and not torch.equal(state.plan_step, torch.full_like(
+                state.plan_step, ENV_STEPS)):
+            raise AssertionError(f"env path: plan_step {state.plan_step.unique().tolist()} after "
+                                 f"{ENV_STEPS} steps")
         state, lifted = counted("retract", RETRACT_K7, lambda: env.retract_batched(state))
         self.launches["contact_scan"] = total
         for name, t in (("pos", state.phys.obj.pos), ("quat", state.phys.obj.quat),
@@ -1930,6 +2075,10 @@ class Smoke:
         if n_valid == 0:
             raise AssertionError("env path: no valid scene")
         rate = lifted[valid].mean().item()
+        expert = "CHOMP planner" if env.p.use_planner else "goal-servo"
+        log(f"[env] B={ENV_BATCH}, {expert} expert: plan_ok share after reset "
+            f"{reset_state.plan_ok.float().mean().item():.4f} "
+            f"({int(reset_state.plan_ok.sum())} of {ENV_BATCH}) ({self.card})")
         log(f"[env] B={ENV_BATCH}: reset launched K7 {RESET_K7}x, each of {ENV_STEPS} expert "
             f"steps 1x, retract {RETRACT_K7}x ({total} in all); valid scenes {n_valid} of "
             f"{ENV_BATCH}; lift rate over valid scenes {rate:.4f} "
@@ -1937,11 +2086,19 @@ class Smoke:
             f"{z.max().item():.4f}; done after {ENV_STEPS} steps in "
             f"{int(done.sum())} envs; mean points in view {obs.num_points.float().mean():.1f}; "
             f"{int((z >= 1.0).sum())} objects above 1 m, all carried in the gripper")
+        self.env_reset_state = reset_state
         return stepped, stepped_obs
 
     def env_timings(self, env, gen, stepped):
         """Host-clock times of the env entry points at ENV_BATCH and K7's
         time against its plain version and bound. Returns K7's totals."""
+        self.env_call_times(env, gen, stepped)
+        return self.k7_timings()
+
+    def env_call_times(self, env, gen, stepped):
+        """step_batched (median of 7, bench.py's constant action, with its
+        device profile), reset and retract_batched (median of 3) at
+        ENV_BATCH, host clock, synchronised."""
         d = self.device
         state, _ = env.reset(ENV_BATCH, gen)
         act = torch.tensor([0.0, 0.0, 0.02, 0.0, 0.0, 0.0], device=d).repeat(ENV_BATCH, 1)
@@ -1964,8 +2121,12 @@ class Smoke:
                 log(f"[profile]   {t:.4f} ms  {name[:100]}")
         reset_ms = host_ms(lambda: env.reset(ENV_BATCH, gen), reps=3)
         retract_ms = host_ms(lambda: env.retract_batched(stepped), reps=3)
-        log(f"[time] reset B={ENV_BATCH}: {reset_ms:.3f} ms; retract_batched B={ENV_BATCH}: "
-            f"{retract_ms:.3f} ms (host clock, synchronised, median of 3 after a warm-up)")
+        expert = "the CHOMP planner" if env.p.use_planner else "the goal servo"
+        log(f"[time] reset B={ENV_BATCH} ({expert}): {reset_ms:.3f} ms; retract_batched "
+            f"B={ENV_BATCH}: {retract_ms:.3f} ms (host clock, synchronised, median of 3 after a "
+            f"warm-up; {self.card})")
+
+    def k7_timings(self):
         totals = None
         for batch, n in K7_TIMED:
             live = (map_state(self.k7_live[0], slice(0, batch)),
@@ -1981,6 +2142,290 @@ class Smoke:
             if totals is None:
                 totals = {"ms": kms, "plain_ms": plain, "bytes": nbytes, "flops": flops}
         return totals
+
+    # -- phase 8: the CHOMP planner --------------------------------------------------------
+    def plan_card_vs_cpu(self, env):
+        """`plan_to_goal` on the card against the CPU at PLAN_BATCHES, on the
+        planner inputs of phase 8's reset (ENV_BATCH envs of EnvParams(),
+        seeded goals from the YCB proxy library), by `plan_rule`; the
+        planner's host-clock time on both, and `replan`'s within a reset."""
+        from gaddpg_tpu_torch.expert.chomp import plan_to_goal
+
+        state = self.env_reset_state
+        inputs = env.plan_inputs(state)
+        cpu = {k: v.cpu() if torch.is_tensor(v) else v for k, v in inputs.items()}
+        t0 = time.perf_counter()
+        plan_c, ok_c = plan_to_goal(**cpu)
+        cpu_ms = (time.perf_counter() - t0) * 1e3
+        nudge_gen = torch.Generator().manual_seed(19)
+        for batch in PLAN_BATCHES:
+            sub = {k: v[:batch] if torch.is_tensor(v) else v for k, v in inputs.items()}
+            sub_c = {k: v[:batch] if torch.is_tensor(v) else v for k, v in cpu.items()}
+            ms = host_ms(lambda: plan_to_goal(**sub), reps=3)
+            plan_g, ok_g = (t.cpu() for t in plan_to_goal(**sub))
+
+            def probe(envs, sub_c=sub_c):
+                rep = {k: (one_ulp(v[envs].repeat(ULP_PROBES, *([1] * (v.dim() - 1))),
+                                   nudge_gen) if torch.is_tensor(v) else v)
+                       for k, v in sub_c.items()}
+                plans, oks = plan_to_goal(**rep)
+                return plans.view(ULP_PROBES, len(envs), *plans.shape[1:]), oks.view(
+                    ULP_PROBES, -1)
+
+            got = plan_rule(f"plan_to_goal B={batch}", plan_g, ok_g, plan_c[:batch],
+                            ok_c[:batch], probe)
+            agree = batch - got["n_chaotic"] - got["n_branch"] - got["n_left"]
+            within = int(((plan_g - plan_c[:batch]).abs().amax(dim=(1, 2)) <= 1e-5).sum())
+            log(f"[planner] plan_to_goal B={batch} card vs CPU: {agree} within "
+                f"{PLAN_TOL_CARD:g} rad ({within} within 1e-5), {got['n_chaotic']} chaotic "
+                f"(within {PLAN_CHAOS:g}x the CPU's one-ulp spread; first {got['chaotic']}), "
+                f"{got['n_branch']} on another IK branch (reached pose within "
+                f"{BRANCH_POSE_TOL:g} m; first {got['branch']}), {got['n_left']} left "
+                f"(first {got['left']}); largest departure {got['largest']:.3g} rad; ok "
+                f"share {ok_g.float().mean():.4f}, ok equal on "
+                f"{int((ok_g == ok_c[:batch]).sum())}; card {ms:.3f} ms per call (host "
+                f"clock, median of 3; {self.card}) ok")
+        log(f"[planner] plan_to_goal B={ENV_BATCH} on the CPU: {cpu_ms:.1f} ms (host clock, "
+            f"{torch.get_num_threads()} threads)")
+        replan_ms = host_ms(lambda: env.replan(state), reps=3)
+        log(f"[time] replan B={ENV_BATCH}: {replan_ms:.3f} ms (host clock, synchronised, median "
+            f"of 3 after a warm-up; a reset runs it once per try; {self.card})")
+        busy, rows, _, launches = device_profile(lambda: env.replan(state), calls=1, count=True)
+        if busy:
+            log(f"[profile] replan B={ENV_BATCH}: device busy {busy:.3f} ms, idle share "
+                f"{max(0.0, 1 - busy / replan_ms):.3f}; {launches:.0f} device activities")
+            for name, t in rows[:5]:
+                log(f"[profile]   {t:.4f} ms  {name[:100]}")
+
+    def seed_contract(self):
+        """examples/minimal_rollout.py's contract in the port:
+        `PandaGraspEnv(EnvParams())` (the CHOMP expert) on
+        box_asset(0.05, 0.05, 0.14, mass=0.2), each seed's episode reset
+        on the card from a CPU generator of that seed, up to ENV_STEPS
+        expert steps (an env stops when done, as the example breaks), the
+        retract: every object below z = 1.0 and every value finite. The
+        CPU replans the card's reset states (`plan_rule`) and runs the
+        episodes again from them: each seed's outcome as on the card, or
+        flipped to it by a one-ulp nudge of the state (CONTRACT_SEEDS'
+        comment). The CPU's own resets of the seeds are logged beside."""
+        from gaddpg_tpu_torch.envs.assets import box_asset
+        from gaddpg_tpu_torch.envs.grasp_env import EnvParams, PandaGraspEnv, _where
+        from gaddpg_tpu_torch.physics.types import map_tensors
+        from gaddpg_tpu_torch.robot.panda import fk_hand
+
+        lib = box_asset(0.05, 0.05, 0.14, mass=0.2)
+        envs = {dev: PandaGraspEnv(EnvParams(), lib, device=dev) for dev in (self.device, "cpu")}
+        env_c = envs["cpu"]
+
+        def reset(env):
+            return cat_states([env.reset(1, torch.Generator().manual_seed(s))[0]
+                               for s in CONTRACT_SEEDS])
+
+        def episode(env, state):
+            """-> (lifted (B,) bool on the CPU, the retracted state)."""
+            done = torch.zeros_like(state.done)
+            gen = torch.Generator().manual_seed(0)
+            for _ in range(ENV_STEPS):
+                new, _, _, new_done, _ = env.step_batched(state, env.expert_action(state), gen)
+                state = _where(~done, new, state)
+                done = done | new_done
+            state, lifted = env.retract_batched(state)
+            z = state.phys.obj.pos[:, 2]
+            if not ((z < 1.0).all() and torch.isfinite(state.phys.obj.pos).all()
+                    and torch.isfinite(state.phys.arm.q).all()):
+                raise AssertionError(f"minimal_rollout on {env.device}: object z {z.tolist()}")
+            return (lifted > 0).cpu(), state
+
+        def nudged(state, envs, gen):
+            """ULP_PROBES copies of `state`'s envs, each nudged by one ulp."""
+            return nudge_env_state(repeat_state(map_tensors(state, lambda t: t[envs]),
+                                                ULP_PROBES), gen)
+
+        t0 = time.perf_counter()
+        start = reset(envs[self.device])
+        card, end = episode(envs[self.device], start)
+        z = end.phys.obj.pos[:, 2]
+        log(f"[planner] minimal_rollout seeds {CONTRACT_SEEDS[0]}-{CONTRACT_SEEDS[-1]} on the "
+            f"card: lifted {card.int().tolist()}, plan_ok {end.plan_ok.int().tolist()}, object z "
+            f"{[round(v, 3) for v in z.tolist()]}; {int(card.sum())} of {len(CONTRACT_SEEDS)} "
+            f"lift below 1 m (the JAX package: 6 of 8); {(time.perf_counter() - t0):.1f} s")
+        t0 = time.perf_counter()
+        start_g = start.to("cpu")
+        # the card's reset plans against the CPU's from the same states
+        gen = torch.Generator().manual_seed(29)
+
+        def probe(envs):
+            out = env_c.replan(nudged(start_g, envs, gen))
+            return (out.plan.view(ULP_PROBES, len(envs), *out.plan.shape[1:]),
+                    out.plan_ok.view(ULP_PROBES, -1))
+
+        again = env_c.replan(start_g)
+        plans = plan_rule("minimal_rollout reset plans", start_g.plan, start_g.plan_ok,
+                          again.plan, again.plan_ok, probe)
+        # the CPU's episodes from the card's reset states
+        cpu, _ = episode(env_c, start_g)
+        differ = (card != cpu).nonzero()[:, 0]
+        if len(differ):
+            probe_lift, _ = episode(env_c, nudged(start_g, differ, gen))
+            reach = (probe_lift.view(ULP_PROBES, -1) == card[differ]).any(dim=0)
+            if not reach.all():
+                raise AssertionError(
+                    f"minimal_rollout: seeds {differ[~reach].tolist()} lift "
+                    f"{card[differ[~reach]].int().tolist()} on the card and "
+                    f"{cpu[differ[~reach]].int().tolist()} on the CPU from the card's reset "
+                    f"state, and none of {ULP_PROBES} one-ulp nudges of it flips the CPU's")
+        log(f"[planner] minimal_rollout from the card's reset states on the CPU: plans within "
+            f"plan_rule ({plans['n_chaotic']} chaotic, {plans['n_branch']} on another IK "
+            f"branch, {plans['n_left']} left; largest departure {plans['largest']:.3g} rad); "
+            f"lifted {cpu.int().tolist()} ({int(cpu.sum())} of {len(CONTRACT_SEEDS)}), "
+            f"outcomes equal on {len(CONTRACT_SEEDS) - len(differ)} seeds, seeds "
+            f"{differ.tolist()} flipped to the card's by a one-ulp nudge of the state; "
+            f"{(time.perf_counter() - t0):.1f} s ok")
+        # beside: the CPU's own resets of the same seeds
+        start_c = reset(env_c)
+        hand = (fk_hand(start_g.phys.arm.q[:, :7])[:, :3, 3]
+                - fk_hand(start_c.phys.arm.q[:, :7])[:, :3, 3]).norm(dim=-1)
+        joints = (start_g.phys.arm.q[:, :7] - start_c.phys.arm.q[:, :7]).abs().amax(dim=1)
+        log(f"[planner] minimal_rollout resets card vs the CPU's own: hand positions "
+            f"{[float(f'{x:.3g}') for x in hand.tolist()]} m apart, arm joints up to "
+            f"{[float(f'{x:.3g}') for x in joints.tolist()]} rad apart per seed (another "
+            f"solution of the same hand pose, or another reset try where the hands differ)")
+
+    # -- compute_dtype="bfloat16" ----------------------------------------------------------
+    def bf16_path(self, gen):
+        """`AgentConfig(compute_dtype="bfloat16")` through the entry points:
+        select_action at BF16_BATCHES (launches as in float32, host-clock
+        times), DDPG and BC updates at TRAIN_BATCH x TRAIN_POINTS (one
+        warm-up and TIMED_UPDATES timed, launches as in float32, finite
+        metrics), then a B=8 DDPG update on the card against the CPU from a
+        common state by tests/test_torch_bf16.py's rule."""
+        from gaddpg_tpu_torch.agents import (
+            AgentConfig, create_agent_state, make_bc_update, make_ddpg_update,
+            make_select_action,
+        )
+
+        cfg = AgentConfig(compute_dtype="bfloat16")
+        state = create_agent_state(cfg, generator=torch.Generator().manual_seed(0))
+        select = make_select_action(cfg)
+        for batch in BF16_BATCHES:
+            ps = synthetic_point_state(batch, gen, self.hand_points, self.device)
+            remain = torch.full((batch,), 10.0, device=self.device)
+            with torch.no_grad():
+                self.reset_counts()
+                action, _ = select(state, ps, remain)
+                torch.cuda.synchronize()
+                if self.counts() != PER_CALL or not torch.isfinite(action).all():
+                    raise AssertionError(f"bf16 select_action B={batch}: launches "
+                                         f"{self.counts()}")
+                ms = host_ms(lambda: select(state, ps, remain), reps=20 if batch < 256 else 10)
+            log(f"[time] bf16 select_action B={batch:4d}: {ms:.3f} ms per call (host clock, "
+                f"synchronised), {ms / batch:.4f} ms per request ({self.card})")
+        train_state = create_agent_state(cfg, TRAIN_POINTS,
+                                         generator=torch.Generator().manual_seed(1))
+        batch = self.learner_batch(TRAIN_BATCH, gen)
+        ddpg, bc = make_ddpg_update(cfg), make_bc_update(cfg)
+        for name, update, per in (("ddpg", lambda: ddpg(train_state, batch, gen), DDPG_PER_UPDATE),
+                                  ("bc", lambda: bc(train_state, batch), BC_PER_UPDATE)):
+            times = []
+            for i in range(1 + TIMED_UPDATES):
+                self.reset_counts()
+                t0 = time.perf_counter()
+                metrics = update()
+                torch.cuda.synchronize()
+                if i:
+                    times.append((time.perf_counter() - t0) * 1e3)
+                if self.counts() != per:
+                    raise AssertionError(f"bf16 {name} update: launches {self.counts()}")
+                bad = [k for k, v in metrics.items() if not torch.isfinite(v).all()]
+                if bad:
+                    raise AssertionError(f"bf16 {name} update: non-finite metrics {bad}")
+            log(f"[time] bf16 {name} update B={TRAIN_BATCH}x{TRAIN_POINTS}: median "
+                f"{statistics.median(times):.3f} ms (host clock, synchronised; min "
+                f"{min(times):.3f}, max {max(times):.3f}, n={len(times)}; {self.card})")
+        for p in train_state.feat.parameters():
+            if p.dtype != torch.float32:
+                raise AssertionError("bf16: a parameter is not float32")
+        self.bf16_card_vs_cpu(gen)
+
+    def bf16_card_vs_cpu(self, gen):
+        """One B=8 bfloat16 DDPG update on the card and on the CPU from a
+        common state with carried Adam moments (the actor term on): each
+        metric, and each parameter group's root-sum-square difference,
+        within BF16_GAP_SHARE of the CPU's own bfloat16-against-float32
+        gap or BF16_SPREAD_FACTOR times the CPU bfloat16 update's spread
+        over BF16_NUDGES perturbations of the point states by BF16_NUDGE.
+        The negative control: the card's update from the same state with
+        the FC layers in float32 must be refused on some output."""
+        from gaddpg_tpu_torch.agents.state import _optimizer_params
+
+        _, update, update_cpu, state_cpu = self.b8_learner(self.cfg.feature_dim, "bfloat16")
+        batches = [self.mixed_batch(8, gen) for _ in range(2)]
+        draws = [torch.rand((8, 6), generator=gen, device=self.device) for _ in batches]
+        state, start = self.b8_start(update_cpu, state_cpu, batches[0], draws[0])
+        batch, nd = _cpu(batches[1]), draws[1].cpu()
+
+        def run(upd, st, b):
+            st = st.to("cpu")
+            return st, {k: float(v) for k, v in upd(st, b, noise_draws=nd).items()}
+
+        got = {k: float(v) for k, v in update(state, batches[1], noise_draws=draws[1]).items()}
+        ref_state, ref = run(update_cpu, start, batch)
+        # the same state and update with the encoders' FC layers in float32
+        start32 = start.to("cpu")
+        for enc in (start32.feat.encoder, start32.feat.value_encoder):
+            enc.compute_dtype = torch.float32
+        f32_state, f32 = run(update_cpu, start32, batch)
+        nudge_gen = torch.Generator().manual_seed(23)
+
+        def perturbed(ps):
+            return ps * (1.0 + BF16_NUDGE * torch.randn(ps.shape, generator=nudge_gen).sign())
+
+        nudged = [run(update_cpu, start, dict(batch, point_state=perturbed(batch["point_state"])))
+                  for _ in range(BF16_NUDGES)]
+
+        def within(label, err, gap, spread):
+            bound = max(BF16_GAP_SHARE * gap, BF16_SPREAD_FACTOR * spread)
+            return err <= bound, f"{label} {err:.3e} (bound {bound:.3e})"
+
+        def check(label, err, gap, spread):
+            ok, reading = within(label, err, gap, spread)
+            if not ok:
+                raise AssertionError(f"bf16 B=8 card vs CPU {reading}: bf16-f32 gap {gap:.3e}, "
+                                     f"perturbed spread {spread:.3e}")
+            return err / gap if gap else 0.0
+
+        flat = lambda st: {n: torch.cat([t.detach().cpu().ravel() for t in ts])  # noqa: E731
+                           for n, ts in _optimizer_params(st).items()}
+        want, w32 = flat(ref_state), flat(f32_state)
+        spreads = [flat(n[0]) for n in nudged]
+
+        def hold(rule, metrics, after):
+            """`rule` on each metric and each parameter group's root-sum-square
+            difference of the card's update (`metrics`, state `after`)."""
+            out = {k: rule(k, abs(metrics[k] - ref[k]), abs(ref[k] - f32[k]),
+                           max(abs(n[1][k] - ref[k]) for n in nudged)) for k in ref}
+            mine = flat(after)
+            for g in want:
+                out[g] = rule(g, (mine[g] - want[g]).norm().item(), (want[g] - w32[g]).norm().item(),
+                              max((sp[g] - want[g]).norm().item() for sp in spreads))
+            return out
+
+        ratios = hold(check, got, state)
+        log(f"[bf16] B=8 DDPG update card vs CPU within the rule; ratios to the CPU's own "
+            f"bf16-f32 gap: " + ", ".join(f"{k} {v:.3f}" for k, v in ratios.items()) + " ok")
+        # the negative control: the card's update from the same start with
+        # the encoders' FC layers in float32 must be refused somewhere
+        card32 = start.to(self.device)
+        for enc in (card32.feat.encoder, card32.feat.value_encoder):
+            enc.compute_dtype = torch.float32
+        got32 = {k: float(v) for k, v in update(card32, batches[1], noise_draws=draws[1]).items()}
+        control = hold(within, got32, card32)
+        refused = [r for ok, r in control.values() if not ok]
+        log(f"[bf16] negative control, the card's update in float32 against the CPU's bf16: "
+            f"refused on {len(refused)} of {len(control)}: " + "; ".join(refused))
+        if not refused:
+            raise AssertionError("bf16 B=8: the rule passes a float32 update on the card: "
+                                 + "; ".join(r for _, r in control.values()))
 
     # -- phase 9: the env on the card against the CPU --------------------------------------
     def env_card_vs_cpu(self, env, env_cpu):
@@ -2000,7 +2445,7 @@ class Smoke:
         rep = lambda t, envs: t[envs].repeat(ULP_PROBES, *([1] * (t.dim() - 1)))
 
         def nudge(pos):
-            return torch.nextafter(pos, pos + torch.randn(pos.shape, generator=nudge_gen).sign())
+            return one_ulp(pos, nudge_gen)
 
         def reset_probe(envs):
             sub = {k: rep(v, envs) for k, v in scene.items()}
@@ -2100,8 +2545,8 @@ class Smoke:
     def loop_path(self):
         """One `Trainer` iteration at full width, as a user runs it: the
         default TrainConfig (batch 256 x 1030 points, 4 DDPG updates, a
-        100,000-transition ring) at LOOP_ENVS envs with
-        EnvParams(use_planner=False) on the YCB proxy library: one
+        100,000-transition ring) at LOOP_ENVS envs with its own EnvParams()
+        (the CHOMP planner expert) on the YCB proxy library: one
         `collect`, then one `train_iter`. The counters are set to 0 before
         each and read after: collect launches K1-K4 through select_action
         at every one of the horizon's steps and K7 through reset, steps and
@@ -2115,9 +2560,11 @@ class Smoke:
         from gaddpg_tpu_torch.train import Trainer, load_config
 
         card = self.card
-        cfg = load_config(overrides={"num_envs": LOOP_ENVS, "use_planner": False,
+        cfg = load_config(overrides={"num_envs": LOOP_ENVS,
                                      "output_dir": tempfile.mkdtemp(prefix="loop_")},
                           policy="DDPG")
+        if not cfg.env.use_planner:
+            raise AssertionError("loop: TrainConfig()'s EnvParams() runs the CHOMP planner")
         t0 = time.perf_counter()
         tr = Trainer(cfg, lib=library_from_index("ycb", "train"))  # device="cuda"
         torch.cuda.synchronize()
@@ -2157,9 +2604,10 @@ class Smoke:
         it = self.timed_iteration(tr)
         spans, collect_ms, train_ms, stats = it["spans"], it["collect_ms"], it["train_ms"], \
             it["stats"]
-        rest = collect_ms - sum(spans.values())
+        rest = collect_ms - sum(v for k, v in spans.items() if k != "plan")
         steps = LOOP_ENVS * horizon
-        log(f"[loop] collect: {collect_ms:.3f} ms: reset {spans['reset']:.3f}, {horizon} steps "
+        log(f"[loop] collect: {collect_ms:.3f} ms: reset {spans['reset']:.3f} (of which the "
+            f"CHOMP planner {spans.get('plan', 0.0):.3f}), {horizon} steps "
             f"{spans['steps']:.3f} ({spans['steps'] / horizon:.3f} per step), retract "
             f"{spans['retract']:.3f}, insert {spans['insert']:.3f}, policy, expert and selects "
             f"{rest:.3f} (host clock, synchronised around each; second iteration; {card})")
@@ -2193,6 +2641,7 @@ class Smoke:
 
         env = tr.env
         env.reset = timed("reset", env.reset)
+        env.replan = timed("plan", env.replan)  # inside the reset's span
         env.step_batched = timed("steps", env.step_batched)
         env.retract_batched = timed("retract", env.retract_batched)
         add_episodes = replay.add_episodes
@@ -2217,7 +2666,7 @@ class Smoke:
                 out["train_counts"] = self.counts()
         finally:
             replay.add_episodes = add_episodes
-            for name in ("reset", "step_batched", "retract_batched"):
+            for name in ("reset", "replan", "step_batched", "retract_batched"):
                 delattr(env, name)
         return out
 
@@ -2227,7 +2676,10 @@ class Smoke:
         from torch.autograd import DeviceType
         from torch.profiler import ProfilerActivity, profile
 
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t_wall = time.perf_counter()
+        # device activity only: the planner's host-side ops would swell the
+        # trace without changing the device time it reads
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             tr.collect()
             torch.cuda.synchronize()
@@ -2250,6 +2702,8 @@ class Smoke:
             f"({self.card})")
         for key, ms in rows[:8]:
             log(f"[profile]   {ms:.3f} ms  {key[:100]}")
+        log(f"[profile] loop iteration: profiled and read in "
+            f"{time.perf_counter() - t_wall:.1f} s")
 
     def same_indices(self, label, point_state):
         """FPS and ball-query indices of an SA1 call on the batch's clouds,
@@ -2262,7 +2716,7 @@ class Smoke:
                                 self.sampling.ball_query(centers.cpu(), xyz.cpu(), 0.02, 64))):
             raise AssertionError(f"{label}: FPS / ball-query indices differ card vs CPU")
 
-    def loop_card_vs_cpu(self):
+    def loop_card_vs_cpu(self, planner=False):
         """One collect and one train_iter of a B=8 Trainer at the dryrun's
         env sizes (`__graft_entry__.py:146-152`) on the card and on the
         CPU, from CPU generators in the same state (the same draws on both
@@ -2273,7 +2727,14 @@ class Smoke:
         the reset too (without a chaos allowance); then the train_iter,
         on a common ring and from a common state that carries Adam
         moments, within the scale 1 card-vs-CPU update rule (metrics and
-        running statistics within 1e-3, moves within their bounds)."""
+        running statistics within 1e-3, moves within their bounds).
+
+        With `planner`, the env runs the CHOMP expert and the rollout its
+        DAgger replan: each reset try's plans and each DAgger replan of the
+        card (the envs whose plan restarts at a step) are held to
+        `plan_rule` against the CPU's `replan` from the same state; the
+        train_iter, which the planner does not reach, is left to the
+        servo run."""
         import tempfile
 
         from gaddpg_tpu_torch import replay
@@ -2287,8 +2748,10 @@ class Smoke:
         env_p = EnvParams(physics=PhysicsParams(substeps=10),
                           camera=CameraParams(width=32, height=32), uniform_num_pts=58,
                           pc_capacity=128, new_points_per_step=32, settle_substeps=20,
-                          max_steps=3, reset_tries=2, retract_lift_steps=2, use_planner=False)
+                          max_steps=3, reset_tries=2, retract_lift_steps=2,
+                          use_planner=planner)
         b = 8
+        label = "planner" if planner else "servo"
         cfg = dataclasses.replace(load_config(overrides={
             "num_envs": b, "max_steps": 3, "extend_steps": 1, "batch_size": b,
             "updates_per_iter": 1, "buffer_size": 64, "output_dir": tempfile.mkdtemp(
@@ -2343,14 +2806,14 @@ class Smoke:
                                 "terminal", "grasp", "target_idx")})
         for k, (x, y) in exact.items():
             if not torch.equal(x.cpu(), y):
-                raise AssertionError(f"loop B=8: {k} differs card vs CPU: {x.tolist()} vs "
-                                     f"{y.tolist()}")
+                raise AssertionError(f"loop B=8 {label}: {k} differs card vs CPU: {x.tolist()} "
+                                     f"vs {y.tolist()}")
         cursors = [(tr.buffer.cur_idx, tr.buffer.filled, tr.buffer.total_env_step)
                    for tr in trainers]
         if cursors[0] != cursors[1] or cursors[0][0] == 0:
             raise AssertionError(f"loop B=8: ring cursors {cursors}")
         flags = eps_g["expert_flags"][valid_g]
-        log(f"[loop] B=8 collect card vs CPU: explore envs {st_g['explore_env'].tolist()}, "
+        log(f"[loop] B=8 {label} collect card vs CPU: explore envs {st_g['explore_env'].tolist()}, "
             f"valid steps {int(valid_g.sum())} ({sorted(set(flags.tolist()))} expert flags), "
             f"episode lengths, flags, masks, episode_map and cursors {cursors[0]} equal ok")
 
@@ -2366,7 +2829,26 @@ class Smoke:
         rep = lambda t, envs: t[envs].repeat(ULP_PROBES, *([1] * (t.dim() - 1)))  # noqa: E731
 
         def nudge(pos):
-            return torch.nextafter(pos, pos + torch.randn(pos.shape, generator=nudge_gen).sign())
+            return one_ulp(pos, nudge_gen)
+
+        def replan_probe(state):
+            """plan_rule's probe: the CPU's replan of `state`'s envs from
+            ULP_PROBES one-ulp nudges of their planner inputs (the arm's
+            joints, the object's pose)."""
+            def probe(envs):
+                out = env_c.replan(nudge_env_state(map_tensors(state, lambda t: rep(t, envs)),
+                                                   nudge_gen))
+                return (out.plan.view(ULP_PROBES, len(envs), *out.plan.shape[1:]),
+                        out.plan_ok.view(ULP_PROBES, -1))
+            return probe
+
+        plans = {"chaotic": 0, "branch": 0, "left": 0, "replans": 0}
+
+        def hold_plans(name, plan_g, ok_g, plan_c, ok_c, state_c):
+            got = plan_rule(f"loop B=8 {name}", plan_g.cpu(), ok_g.cpu(), plan_c, ok_c,
+                            replan_probe(state_c))
+            for k in ("chaotic", "branch", "left"):
+                plans[k] += got[f"n_{k}"]
 
         # each reset try: the scene from the same draws (its IK start may
         # reach the hand pose from another near-tied seed, ROADMAP.md Queue
@@ -2395,19 +2877,29 @@ class Smoke:
                 sub["obj_pos"] = nudge(sub["obj_pos"])
                 return env_c.reset_scene(sub)[0]
 
-            w, ch = self.compare_env(f"loop reset try {r}", rs_g, ro_g, rs_c, ro_c, 1e-6,
+            if planner:
+                hold_plans(f"reset try {r}", rs_g.plan, rs_g.plan_ok, rs_c.plan, rs_c.plan_ok,
+                           rs_c)
+            w, ch = self.compare_env(f"loop {label} reset try {r}", rs_g, ro_g, rs_c, ro_c, 1e-6,
                                      reset_probe)
             worst, chaotic = max(worst, w), chaotic | ch
         for i, (args, kwargs, gstate, out) in enumerate(steps):
             prev, acts = args[0].to("cpu"), args[1].cpu()
             requery = kwargs["requery_goal"].cpu()
+            redo = (prev.plan_step == 0).nonzero()[:, 0] if planner and i else []
+            if len(redo):  # the card's DAgger replans at this step
+                sub = map_tensors(prev, lambda t: t[redo])
+                again = env_c.replan(sub)
+                hold_plans(f"step {i} DAgger replan", prev.plan[redo], prev.plan_ok[redo],
+                           again.plan, again.plan_ok, sub)
+                plans["replans"] += len(redo)
             got = env_c.step_batched(prev, acts, cpu_gen(gstate), requery_goal=requery)
 
             def probe(envs, prev=prev, acts=acts, requery=requery):
                 sub = nudge_state(map_tensors(prev, lambda t: rep(t, envs)), nudge)
                 return env_c.step_batched(sub, rep(acts, envs), requery_goal=rep(requery, envs))[0]
 
-            w, ch = self.compare_env(f"loop step {i}", out[0], out[1], got[0], got[1],
+            w, ch = self.compare_env(f"loop {label} step {i}", out[0], out[1], got[0], got[1],
                                      2 * ARM_SERVO_QUANTUM, probe)
             worst, chaotic = max(worst, w), chaotic | ch
         (args, _, _, (_, lift_g)), = retracts
@@ -2422,10 +2914,17 @@ class Smoke:
                                      "not from a chaotic grasp")
         if not torch.equal(rew_g.cpu(), rew_c) and not len(differ):
             raise AssertionError("loop B=8: rollout rewards differ card vs CPU")
-        log(f"[loop] B=8 env path card vs CPU: {len(resets)} reset tries and {len(steps)} steps "
-            f"each within phase 9's rule from the same state and draws (chaotic envs "
-            f"{chaotic.nonzero()[:, 0].tolist()}, largest unmatched point share {worst:.4f}); "
-            f"lifts card {lift_g.tolist()}, CPU {lift_c.tolist()} ok")
+        log(f"[loop] B=8 {label} env path card vs CPU: {len(resets)} reset tries and "
+            f"{len(steps)} steps each within phase 9's rule from the same state and draws "
+            f"(chaotic envs {chaotic.nonzero()[:, 0].tolist()}, largest unmatched point share "
+            f"{worst:.4f}); lifts card {lift_g.tolist()}, CPU {lift_c.tolist()} ok")
+        if planner:
+            if not plans["replans"]:
+                raise AssertionError("loop B=8 planner: no DAgger replan on a live env")
+            log(f"[loop] B=8 planner: reset plans and {plans['replans']} DAgger replans within "
+                f"plan_rule ({plans['chaotic']} chaotic, {plans['branch']} on another IK branch, "
+                f"{plans['left']} left) ok")
+            return
 
         # sampling and one train_iter from a common ring and state
         ep_len = min(cfg.max_steps, 8)
@@ -2512,6 +3011,16 @@ def crossing_verdict(offs, spreads):
     return "; ".join(why)
 
 
+def planner_env(lib=None):
+    """`PandaGraspEnv(EnvParams())` on the card: bench.py's env half
+    (bench.py:53), the CHOMP planner expert, on the YCB proxy library
+    unless `lib` is given."""
+    from gaddpg_tpu_torch.envs.assets import library_from_index
+    from gaddpg_tpu_torch.envs.grasp_env import EnvParams, PandaGraspEnv
+
+    return PandaGraspEnv(EnvParams(), lib or library_from_index("ycb", "train"))
+
+
 def seed_range(text):
     """"A-B" (inclusive), "A", or a comma-separated list of those -> a
     tuple of seeds."""
@@ -2547,6 +3056,10 @@ def main(argv=None) -> int:
     ap.add_argument("--loop", action="store_true",
                     help="run phase 11 (the train loop at full width and at B=8 card vs "
                          "CPU) alone")
+    ap.add_argument("--planner", action="store_true",
+                    help="run the CHOMP planner alone: phase 8's env path with EnvParams(), "
+                         "plan_to_goal card vs CPU, the reset, step and retract times and "
+                         "the minimal_rollout seed contract")
     args = ap.parse_args(argv)
     plain = [k for k in args.plain_on_card.split(",") if k]
     if any(k not in PLAIN_ON_CARD for k in plain) or (plain and not args.scale2_seeds):
@@ -2562,6 +3075,7 @@ def main(argv=None) -> int:
         print(f"chip_smoke: the gaddpg_tpu_torch package is missing ({e})", file=sys.stderr)
         return 1
     try:
+        t_start = time.perf_counter()
         log(f"[env] python {sys.version.split()[0]}, torch {torch.__version__}, "
             f"CUDA {torch.version.cuda}, {torch.cuda.get_device_name(0)}")
         card = card_line()
@@ -2581,7 +3095,20 @@ def main(argv=None) -> int:
             smoke = Smoke()
             smoke.loop_path()
             smoke.loop_card_vs_cpu()
+            smoke.loop_card_vs_cpu(planner=True)
             print(card, flush=True)
+            return 0
+        if args.planner:
+            with torch.no_grad():
+                smoke = Smoke()
+                env = planner_env()
+                env_gen = torch.Generator(device="cuda").manual_seed(7)
+                stepped, _ = smoke.env_path(env, env_gen)
+                smoke.plan_card_vs_cpu(env)
+                smoke.env_call_times(env, env_gen, stepped)
+                smoke.seed_contract()
+            print(card, flush=True)
+            log(f"[time] whole run {time.perf_counter() - t_start:.1f} s")
             return 0
         if args.scale2_seeds:
             from gaddpg_tpu_torch.ops import sa_train
@@ -2607,29 +3134,47 @@ def main(argv=None) -> int:
             select, inputs = smoke.main_path(gen)
             smoke.runner()
             totals = smoke.timings(select, inputs, gen)
+        mark = lambda name: log(f"[phase] {name} done at "  # noqa: E731
+                                f"{time.perf_counter() - t_start:.1f} s")
+        mark("serving")
         smoke.learner(gen)
         totals.update(smoke.train_timings(gen))
         smoke.scale2_timings(gen)
+        mark("learner")
+        smoke.bf16_path(gen)
+        mark("bf16")
         with torch.no_grad():
             from gaddpg_tpu_torch.envs.assets import library_from_index
             from gaddpg_tpu_torch.envs.grasp_env import EnvParams, PandaGraspEnv
 
             lib = library_from_index("ycb", "train")
-            env = PandaGraspEnv(EnvParams(use_planner=False), lib)  # device="cuda"
-            env_cpu = PandaGraspEnv(EnvParams(use_planner=False), lib, device="cpu")
+            env = planner_env(lib)  # EnvParams(): the CHOMP expert, device="cuda"
+            # the goal servo's env for K7's live states and phase 9
+            servo = PandaGraspEnv(EnvParams(use_planner=False), lib)
+            servo_cpu = PandaGraspEnv(EnvParams(use_planner=False), lib, device="cpu")
             env_gen = torch.Generator(device="cuda").manual_seed(7)
-            smoke.check_contact_scan(env, env_gen)
+            smoke.check_contact_scan(servo, env_gen)
+            mark("K7")
             stepped, stepped_obs = smoke.env_path(env, env_gen)
+            smoke.plan_card_vs_cpu(env)
             totals["contact_scan"] = smoke.env_timings(env, env_gen, stepped)
+            smoke.seed_contract()
+            mark("env and planner")
             smoke.cloud_timings(stepped_obs.point_state)
-            smoke.env_card_vs_cpu(env, env_cpu)
+            smoke.env_card_vs_cpu(servo, servo_cpu)
+            mark("env card vs CPU")
         smoke.scale2_card_vs_cpu()
+        mark("scale 2")
         smoke.per_iter = smoke.loop_path()
+        mark("loop")
         smoke.loop_card_vs_cpu()
+        smoke.loop_card_vs_cpu(planner=True)
+        mark("loop card vs CPU")
         line = smoke.kernel_line(totals)
     except Exception:  # report which phase failed, then fail the run
         traceback.print_exc()
         return 1
+    log(f"[time] whole run {time.perf_counter() - t_start:.1f} s")
     print(card, flush=True)
     print(json.dumps(line), flush=True)
     print(json.dumps({"ok": True, "device": {

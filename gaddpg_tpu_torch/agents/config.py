@@ -1,9 +1,8 @@
 """Agent hyperparameters (defaults = reference experiments/config.py).
 
 The port's own copy of gaddpg_tpu/agents/config.py, field for field, so
-configurations carry over unchanged. The serving path supports
-`use_image=False` and `compute_dtype="float32"`; the other values raise
-where they would be used.
+configurations carry over unchanged. The port supports `use_image=False`
+(the other value raises where it would be used) and both compute dtypes.
 """
 
 import dataclasses
@@ -36,9 +35,10 @@ class AgentConfig:
     # pretrained=True (reference: core/networks.py:38-58,118,126). The
     # weights are not auto-downloaded (zero-egress); empty = from scratch.
     pretrained_resnet: str = ""
-    # matmul compute dtype for the feature trunks: "bfloat16" would run
-    # the PointNet grouped MLPs in bf16 with params and BatchNorm in
-    # float32; the port supports "float32" only so far.
+    # matmul compute dtype for the feature trunks: "bfloat16" runs the
+    # encoders' FC Dense layers in bf16, with params and BatchNorm in
+    # float32 (the SA levels' fused kernels stay float32, as in the JAX
+    # package, gaddpg_tpu/models/pointnet.py:83-140)
     compute_dtype: str = "float32"
 
     # collision-aware imitation (closes the clutter/mesh-scale

@@ -68,14 +68,15 @@ class AgentState:
         return out
 
 
+COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
 def check_supported(cfg: AgentConfig):
     """Raise for configurations the port does not run yet."""
     if cfg.use_image:
         raise NotImplementedError("image observations (ResNet-18) are not ported yet")
-    if cfg.compute_dtype != "float32":
-        raise NotImplementedError(
-            f"compute_dtype={cfg.compute_dtype!r}: only 'float32' is ported"
-        )
+    if cfg.compute_dtype not in COMPUTE_DTYPES:
+        raise ValueError(f"compute_dtype={cfg.compute_dtype!r}: one of {sorted(COMPUTE_DTYPES)}")
 
 
 FEATURE_WIDTH = 512  # the encoder's output at model scale 1
@@ -91,7 +92,9 @@ def make_modules(cfg: AgentConfig):
     if rest or scale < 1:
         raise ValueError(f"feature_dim={cfg.feature_dim}: the PointNet++ encoder outputs "
                          f"a multiple of {FEATURE_WIDTH}")
-    feat = PointNetFeature(scale=scale)
+    # the encoders' FC Dense layers run in compute_dtype, as
+    # gaddpg_tpu/agents/state.py:55 sets the JAX modules' dtype
+    feat = PointNetFeature(scale=scale, compute_dtype=COMPUTE_DTYPES[cfg.compute_dtype])
     # the optional collision-prediction logit rides as the LAST dim of
     # the policy aux head
     policy = GaussianPolicy(

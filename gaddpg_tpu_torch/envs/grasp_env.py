@@ -1,6 +1,6 @@
 """PandaGraspEnv: the batched 6-DoF grasping env (counterpart of
-gaddpg_tpu/envs/grasp_env.py, single-object scenes with the goal-servo
-expert).
+gaddpg_tpu/envs/grasp_env.py, single-object scenes with the CHOMP
+planner expert or the goal servo).
 
 One env step, for a batch of B envs at once:
 
@@ -15,9 +15,9 @@ env/panda_gripper_hand_camera.py:32, env/panda_scene.py:1000-1001).
 Randomness: `reset` and `step_batched` draw from a `torch.Generator`, or
 take the exact draws as tensors (`draws=`), so the JAX package's
 `jax.random` draws can be injected for parity. The per-env `step` /
-`retract` / `step_joint`, the CHOMP planner (`use_planner`), clutter
-(`num_clutter`) and image observations (`use_image`, `domain_rand`) are
-not ported: `PandaGraspEnv` raises NotImplementedError for them.
+`retract` / `step_joint`, clutter (`num_clutter`) and image observations
+(`use_image`, `domain_rand`) are not ported: `PandaGraspEnv` raises
+NotImplementedError for them.
 """
 
 import dataclasses
@@ -28,6 +28,7 @@ import numpy as np
 import torch
 
 from gaddpg_tpu_torch.envs.assets import ObjectLibrary
+from gaddpg_tpu_torch.expert.chomp import PLAN_STEPS, plan_action, plan_to_goal
 from gaddpg_tpu_torch.expert.goals import nearest_grasp_goal
 from gaddpg_tpu_torch.expert.servo import expert_action as servo_expert_action
 from gaddpg_tpu_torch.expert.servo import expert_plan_length
@@ -77,7 +78,7 @@ class EnvParams:
     spawn_x: Tuple[float, float] = (0.50, 0.60)
     spawn_y: Tuple[float, float] = (-0.125, 0.125)
     num_clutter: int = 0                 # not ported: must stay 0
-    use_planner: bool = True             # CHOMP expert, not ported: pass False
+    use_planner: bool = True             # CHOMP expert; False: the straight goal servo
     clutter_grid_x: Tuple[float, float] = (0.45, 0.69)
     clutter_grid_y: Tuple[float, float] = (-0.14, 0.14)
     clutter_jitter: float = 0.015
@@ -110,6 +111,9 @@ class EnvState:
     collided_before: torch.Tensor  # (B,) bool: any contact so far
     done: torch.Tensor             # (B,) bool
     valid_scene: torch.Tensor      # (B,) bool
+    plan: torch.Tensor             # (B, PLAN_STEPS, 7) the planner's joint waypoints
+    plan_ok: torch.Tensor          # (B,) bool
+    plan_step: torch.Tensor        # (B,) int32 progress along the plan
 
     def to(self, device) -> "EnvState":
         return map_tensors(self, lambda t: t.to(device))
@@ -143,7 +147,7 @@ def _where(cond, a, b):
 def state_from_numpy(tree, device="cuda") -> EnvState:
     """A port EnvState from the numpy leaves of a JAX EnvState given as a
     nested dict (`dataclasses.asdict` of the JAX state with every leaf
-    through `np.asarray`), reservoir included. Clutter, planner and
+    through `np.asarray`), reservoir and plan included. Clutter and
     image fields are ignored. Lands on the card unless `device="cpu"`,
     and raises without one, as `from_flax` does."""
     device = resolve_device(device)
@@ -169,6 +173,9 @@ def state_from_numpy(tree, device="cuda") -> EnvState:
         collided_before=t(tree["collided_before"], torch.bool),
         done=t(tree["done"], torch.bool),
         valid_scene=t(tree["valid_scene"], torch.bool),
+        plan=t(tree["plan"]),
+        plan_ok=t(tree["plan_ok"], torch.bool),
+        plan_step=t(tree["plan_step"], torch.int32),
     )
 
 
@@ -177,10 +184,6 @@ class PandaGraspEnv:
     works on a batch of envs and leaves its inputs unchanged."""
 
     def __init__(self, params: EnvParams, lib: ObjectLibrary, device="cuda"):
-        if params.use_planner:
-            raise NotImplementedError(
-                "use_planner=True needs the CHOMP expert (expert/chomp.py), which is not "
-                "ported yet; pass EnvParams(use_planner=False)")
         if params.num_clutter:
             raise NotImplementedError("num_clutter > 0 (physics/multi.py) is not ported yet")
         if params.use_image or params.domain_rand:
@@ -358,12 +361,19 @@ class PandaGraspEnv:
             goal_obj=torch.eye(4, device=dev).repeat(b, 1, 1),
             collided=false, collided_before=false, done=false,
             valid_scene=torch.ones(b, dtype=torch.bool, device=dev),
+            plan=q[:, None, :7].repeat(1, PLAN_STEPS, 1),
+            plan_ok=torch.ones(b, dtype=torch.bool, device=dev),
+            plan_step=torch.zeros(b, dtype=torch.int32, device=dev),
         )
         state = self._update_goal(state)
+        if p.use_planner:
+            state = self.replan(state)
         state, obs, _ = self._observe_impl(state, generator, draws)
 
         # scene validity (reference: core/utils.py:132-149): tcp distance in
-        # range, enough target points, IK solvable, a reachable grasp
+        # range, enough target points, IK solvable, a reachable grasp, and
+        # a plan (the reference drops episodes whose planner fails,
+        # reference: core/train_online.py:227-229)
         hand = self._hand(state)
         tcp = hand[:, :3, 3] + hand[:, :3, :3] @ const(TCP_OFFSET, dev)
         dist = torch.linalg.vector_norm(phys.obj.pos - tcp, dim=-1)
@@ -374,7 +384,7 @@ class PandaGraspEnv:
         # the reference's 100-point check scales with the camera's pixels
         min_pts = max(8, (50 * p.camera.height * p.camera.width) // 4096)
         valid = (ik_ok & (dist > 0.15) & (dist < 0.6) & (obs.num_points > min_pts)
-                 & grasp_found & goal_reachable)
+                 & grasp_found & goal_reachable & state.plan_ok)
         return dataclasses.replace(state, valid_scene=valid), obs
 
     @f32_matmuls
@@ -461,7 +471,7 @@ class PandaGraspEnv:
         state, obs, vis_depth = self._observe_impl(state, generator, draws)
         done = self._termination(state, vis_depth)
         state = dataclasses.replace(state, env_step=state.env_step + 1,
-                                    done=state.done | done)
+                                    plan_step=state.plan_step + 1, done=state.done | done)
         info = {
             "collided": state.collided,
             "goal_dist": torch.linalg.vector_norm(obs.goal_pose[:, 4:7], dim=-1),
@@ -494,13 +504,41 @@ class PandaGraspEnv:
         return state, lifted.to(torch.float32)
 
     # ------------------------------------------------------------------
+    def plan_inputs(self, state: EnvState) -> dict:
+        """`plan_to_goal`'s arguments for every env: the current joints, the
+        grasp goal, the table, no obstacle spheres (single-object scenes),
+        and the target's own spheres in the world frame, which repel the
+        approach."""
+        obj_pose = self._obj_pose(state.phys.obj)
+        sph = self.lib.spheres[state.obj_idx]
+        target = torch.cat([sph[..., :3] @ obj_pose[:, :3, :3].transpose(-1, -2)
+                            + obj_pose[:, None, :3, 3], sph[..., 3:]], dim=-1)
+        return dict(q0=state.phys.arm.q[:, :7], goal_pose=self._goal_world(state),
+                    obstacle_spheres=sph.new_zeros(sph.shape[0], 0, 4),
+                    table_z=self.p.physics.table_z, target_spheres=target)
+
+    @f32_matmuls
+    def replan(self, state: EnvState) -> EnvState:
+        """(Re)plan every env's expert trajectory from its current joints
+        to its current grasp goal (the reference replans mid-episode for
+        DAgger, reference: env/panda_scene.py:920-993)."""
+        plan, ok = plan_to_goal(**self.plan_inputs(state))
+        return dataclasses.replace(state, plan=plan, plan_ok=ok,
+                                   plan_step=torch.zeros_like(state.plan_step))
+
     @f32_matmuls
     def expert_action(self, state: EnvState):
-        """The goal-servo expert's (B, 6) actions."""
+        """The expert's (B, 6) actions: the plan's next waypoint with
+        `use_planner`, else the goal servo."""
+        if self.p.use_planner:
+            return plan_action(self._hand(state), state.plan, state.plan_step)
         return servo_expert_action(self._hand(state), self._goal_world(state))
 
     @f32_matmuls
     def expert_steps(self, state: EnvState):
-        """The servo's rough remaining step count (B,)."""
+        """The expert's step count (B,): the plan's length with
+        `use_planner`, else the servo's rough remaining count."""
+        if self.p.use_planner:
+            return torch.full(state.env_step.shape, float(PLAN_STEPS), device=self.device)
         rel = se3_inverse(self._hand(state)) @ self._goal_world(state)
         return expert_plan_length(rel, self.p.max_steps)

@@ -24,6 +24,13 @@ each BatchNorm's batch (mean, var), and the caller folds the ones it
 keeps in with `PointNetEncoder.update_running_stats`, as the JAX update
 keeps the statistics of two of its five encoder forwards. The modules'
 own BatchNorm layers stay in eval mode.
+
+`compute_dtype=torch.bfloat16` (`AgentConfig.compute_dtype`) runs the two
+FC Dense layers as the JAX package's `Dense(dtype=bfloat16)` runs them;
+the SA levels stay float32 there too, since its fused SA kernels take
+float32 weights whatever the module's dtype
+(gaddpg_tpu/models/pointnet.py:83-140). Parameters, BatchNorm and
+everything after the Dense layers stay float32.
 """
 
 from typing import Sequence
@@ -69,6 +76,18 @@ def batch_norm_eval(bn: nn.BatchNorm1d, x):
 def _batch_norm(c: int) -> nn.BatchNorm1d:
     # Flax momentum 0.9 on the old value == torch momentum 0.1 on the new
     return nn.BatchNorm1d(c, eps=BN_EPS, momentum=0.1)
+
+
+def dense(linear: nn.Linear, x, compute_dtype=torch.float32):
+    """`linear(x)` in `compute_dtype`, a float32 result either way. In
+    bfloat16 it computes as Flax's `Dense(dtype=bfloat16)`: x, W and b
+    rounded to bfloat16, the product rounded to bfloat16 (its partial
+    sums in float32 under `f32_matmuls`), then the bias added in
+    bfloat16."""
+    if compute_dtype == torch.float32:
+        return linear(x)
+    w, b = linear.weight.to(compute_dtype), linear.bias.to(compute_dtype)
+    return ((x.to(compute_dtype) @ w.t()) + b).float()
 
 
 class SetAbstraction(nn.Module):
@@ -120,9 +139,10 @@ class PointNetEncoder(nn.Module):
     BatchNorm_i of the Flax module."""
 
     def __init__(self, in_channels: int = 4, nclusters: int = 32, radius: float = 0.02,
-                 scale: int = 1):
+                 scale: int = 1, compute_dtype: torch.dtype = torch.float32):
         super().__init__()
         s = scale
+        self.compute_dtype = compute_dtype
         self.sa = nn.ModuleList([
             SetAbstraction(nclusters, radius, 64, in_channels + 3, (64 * s, 64 * s, 128 * s)),
             SetAbstraction(32, 0.04, 128, 128 * s + 3, (128 * s, 128 * s, 256 * s)),
@@ -146,12 +166,13 @@ class PointNetEncoder(nn.Module):
                 xyz, feats = sa(xyz, feats)
         h = feats[:, 0]
         for fc, bn in zip(self.fc, self.fc_norms):
+            z = dense(fc, h, self.compute_dtype)
             if train:
-                h, m, v = batch_norm_train(bn, fc(h))
+                h, m, v = batch_norm_train(bn, z)
                 stats.append((m.detach(), v.detach()))
                 h = torch.relu(h)
             else:
-                h = torch.relu(batch_norm_eval(bn, fc(h)))
+                h = torch.relu(batch_norm_eval(bn, z))
         return (h, stats) if train else h
 
     def batch_norms(self):
@@ -175,12 +196,13 @@ class PointNetFeature(nn.Module):
     """
 
     def __init__(self, policy_in: int = 4, value_in: int = 10, nclusters: int = 32,
-                 radius: float = 0.02, scale: int = 1, num_hand_points: int = 6):
+                 radius: float = 0.02, scale: int = 1, num_hand_points: int = 6,
+                 compute_dtype: torch.dtype = torch.float32):
         super().__init__()
         self.policy_in, self.value_in = policy_in, value_in
         self.num_hand_points = num_hand_points
-        self.encoder = PointNetEncoder(policy_in, nclusters, radius, scale)
-        self.value_encoder = PointNetEncoder(value_in, nclusters, radius, scale)
+        self.encoder = PointNetEncoder(policy_in, nclusters, radius, scale, compute_dtype)
+        self.value_encoder = PointNetEncoder(value_in, nclusters, radius, scale, compute_dtype)
 
     def _prep(self, point_state, channels):
         # (B, C, N) -> drop hand anchor points -> (B, N', C_keep)

@@ -125,10 +125,12 @@ def fk_hand(q):
     return T @ const(_T_HAND, q.device)
 
 
-def arm_collision_points(q):
+def arm_collision_points(q=None, frames=None):
     """(..., N, 3) world sphere centres along the arm skeleton (pair
-    with ARM_POINT_RADII (N,))."""
-    frames = fk_all(q)
+    with ARM_POINT_RADII (N,)), from joints q (..., 7) or from frames
+    (..., 8, 4, 4) that `fk_all` already gave (no second FK chain)."""
+    if frames is None:
+        frames = fk_all(q)
     starts = frames[..., :-1, :3, 3]                     # (..., 7, 3)
     ends = frames[..., 1:, :3, 3]
     ts = const(_ARM_SEG_TS, frames.device)[:, None]      # (T, 1)

@@ -2,9 +2,11 @@
 gaddpg_tpu/train/rollout.py; reference: core/train_online.py:207-321).
 
 - a fraction of envs "explore" (roll the policy + noise), the rest roll
-  the servo expert (the reference's explore/expert episode split);
+  the expert, the CHOMP plan or the goal servo (the reference's
+  explore/expert episode split);
 - explore envs may start with a few expert steps (expert_initial_state)
-  and get DAgger expert-relabel steps; expert envs get DART random
+  and get DAgger expert-relabel steps (under the planner, replanned from
+  the policy's state); expert envs get DART random
   perturbation steps flagged perturb (excluded from the critic loss);
 - envs freeze once done; after the horizon every env runs the retract
   and the lift reward lands on its last valid transition, with the
@@ -46,9 +48,6 @@ class RolloutWorker:
         if mesh is not None:
             raise NotImplementedError("a device mesh (multi-GPU data parallel) is not ported "
                                       "yet; pass mesh=None")
-        if train_cfg.dagger and env.p.use_planner:
-            raise NotImplementedError("the DAgger replan needs the CHOMP expert "
-                                      "(expert/chomp.py), which is not ported yet")
         if agent_cfg.use_image:
             raise NotImplementedError("image observations are not ported yet")
         self.device = resolve_device(device)
@@ -157,6 +156,12 @@ class RolloutWorker:
         dagger = (cfg.dagger & explore_env & (t_f > cfg.dagger_min_step)
                   & (t_f < torch.clamp(plan_len + 2.0, max=cfg.dagger_max_step))
                   & (dagger_u < cfg.dagger_ratio))
+        if cfg.dagger and env.p.use_planner:
+            # the planner expert: a DAgger relabel replans from the policy's
+            # current state (reference: core/train_online.py:246-251)
+            replan = dagger & ~done
+            if bool(replan.any()):
+                states = _where(replan, env.replan(states), states)
         expert_a = env.expert_action(states)
         remain = torch.clamp(plan_len - t_f, min=1.0)
         policy_a, _ = self.select_action(agent_state, obs.point_state, remain)

@@ -239,11 +239,12 @@ def test_policy_runner_matches_jax(jax_state, port_state):
 
 def test_unported_options_raise(port_state):
     with pytest.raises(NotImplementedError):
-        make_select_action(AgentConfig(compute_dtype="bfloat16"), device="cpu")
-    with pytest.raises(NotImplementedError):
-        create_agent_state(AgentConfig(compute_dtype="bfloat16"), device="cpu")
-    with pytest.raises(NotImplementedError):
         create_agent_state(AgentConfig(use_image=True), device="cpu")
+    with pytest.raises(ValueError, match="compute_dtype"):
+        make_select_action(AgentConfig(compute_dtype="float16"), device="cpu")
+    # bfloat16 is ported: the encoders' FC Dense layers run in it
+    state = create_agent_state(AgentConfig(compute_dtype="bfloat16"), npoints=96, device="cpu")
+    assert state.feat.encoder.compute_dtype == torch.bfloat16
 
 
 def test_create_agent_state_matches_jax_shapes_and_init(jax_state):

@@ -73,13 +73,13 @@ def to_numpy(tree):
     return jax.tree_util.tree_map(np.asarray, tree)
 
 
-def env_params(cls, physics_cls, camera_cls):
-    kw = dict(DRYRUN_ENV, camera=camera_cls(**DRYRUN_ENV["camera"]))
+def env_params(cls, physics_cls, camera_cls, planner=False):
+    kw = dict(DRYRUN_ENV, camera=camera_cls(**DRYRUN_ENV["camera"]), use_planner=planner)
     return cls(physics=physics_cls(substeps=10), **kw)
 
 
-def port_env_params():
-    return env_params(EnvParams, PhysicsParams, CameraParams)
+def port_env_params(planner=False):
+    return env_params(EnvParams, PhysicsParams, CameraParams, planner)
 
 
 # -- schedules and config ---------------------------------------------------------
@@ -145,14 +145,14 @@ def test_metrics(tmp_path):
 
 # -- the rollout against the JAX package --------------------------------------------
 
-def _jax_rollout_and_draws(seed):
+def _jax_rollout_and_draws(seed, planner=False):
     """(JAX rollout outputs as numpy, port AgentState, draws for the port,
     the port's library, the JAX rollout's carry: {"reset": (states,
     observations) of the reset, "steps": {first step key: (states,
     actions, keys, observations and done flags out) of each in-scan
     `step_batched`}}, numpy leaves)."""
     jax_lib = jassets.box_asset(0.06, 0.06, 0.14)
-    jparams = env_params(JaxEnvParams, JaxPhysicsParams, JaxCameraParams)
+    jparams = env_params(JaxEnvParams, JaxPhysicsParams, JaxCameraParams, planner)
     jenv = JaxPandaGraspEnv(jparams, jax_lib)
     jcfg = dataclasses.replace(jax_config.load_config(overrides=ROLLOUT), env=jparams)
     acfg = JaxAgentConfig()
@@ -457,23 +457,11 @@ def test_unported_options_raise(tmp_path):
     lib = box_asset(0.06, 0.06, 0.14)
     with pytest.raises(NotImplementedError, match="mesh"):
         Trainer(dryrun_config(tmp_path), lib=lib, mesh=object(), device="cpu")
-    cfg = dataclasses.replace(dryrun_config(tmp_path, dagger=True),
-                              env=dataclasses.replace(port_env_params(), use_planner=True))
-    with pytest.raises(NotImplementedError, match="CHOMP"):
-        Trainer(cfg, lib=lib, device="cpu")
     tr = Trainer(dryrun_config(tmp_path), lib=lib, device="cpu")
     with pytest.raises(NotImplementedError, match="scenes"):
         tr.evaluate(scenes={"obj_idx": np.zeros(4)})
     with pytest.raises(NotImplementedError, match="scenes"):
         tr.worker.evaluate_scenes(tr.agent_state, {})
-
-    class PlannerEnv:  # an env that would run the planner
-        p = dataclasses.replace(port_env_params(), use_planner=True)
-        device = torch.device("cpu")
-
-    with pytest.raises(NotImplementedError, match="CHOMP"):
-        RolloutWorker(PlannerEnv(), AgentConfig(), dryrun_config(tmp_path, dagger=True),
-                      device="cpu")
 
 
 def test_trainer_defaults_to_the_card(tmp_path):

@@ -1,6 +1,8 @@
 """Shared pieces of the env parity tests (tests/test_torch_env*.py): the
 JAX env and the port's on the same library, JAX scenes and the JAX
-package's random draws as tensors for the port."""
+package's random draws as tensors for the port; the planner's chaos rule
+(tests/test_torch_chomp.py, test_torch_env_planner.py and
+test_torch_train_planner.py)."""
 
 import dataclasses
 
@@ -15,13 +17,46 @@ from gaddpg_tpu_torch.envs.assets import LIBRARY_FIELDS, library_from_arrays
 from gaddpg_tpu_torch.envs.grasp_env import EnvParams, PandaGraspEnv, state_from_numpy
 
 
-def make_envs(jax_lib):
-    """(JAX env, port env on the CPU) with `use_planner=False`, the port's
-    library carried over from the JAX one."""
+# A plan of the port against the JAX package's: within PLAN_TOL where
+# one-ulp nudges of the reference's inputs leave its own plan within
+# PLAN_TOL (1.0e-6 is the largest such spread measured, 3e-7 the port's
+# departure); else a hinge of the obstacle cost flips within the 30
+# preconditioned descent steps, the plan is chaotic, and the port's must
+# lie within CHAOS_FACTOR times the reference's own spread
+PLAN_TOL = 1e-5
+CHAOS_FACTOR = 2.0
+
+
+def plan_bounds(plan, ref, nudged):
+    """(departure, spread, bound), each (B,): the plans `plan` (B, S, 7)
+    against the reference plans `ref` (B, S, 7), the reference's own
+    spread over its plans `nudged` (P, B, S, 7) from one-ulp nudges of its
+    inputs, and the chaos rule's bound on the departure."""
+    ref = np.asarray(ref)
+    err = np.abs(np.asarray(plan) - ref).max(axis=(1, 2))
+    spread = np.abs(np.asarray(nudged) - ref[None]).max(axis=(0, 2, 3))
+    return err, spread, np.where(spread <= PLAN_TOL, PLAN_TOL, CHAOS_FACTOR * spread)
+
+
+def nudged_joints(jst, count, seed):
+    """`count` copies of the JAX env states `jst` along the batch, the
+    arm's seven joints of each copy moved by one ulp, up or down at random
+    (numpy's RandomState(seed))."""
+    rep = jax.tree_util.tree_map(lambda x: np.concatenate([np.asarray(x)] * count), jst)
+    q = np.array(rep.phys.arm.q)
+    rng = np.random.RandomState(seed)
+    q[:, :7] = np.nextafter(q[:, :7], (q[:, :7] + rng.choice([-1.0, 1.0], q[:, :7].shape)
+                                       ).astype(np.float32))
+    return rep.replace(phys=rep.phys.replace(arm=rep.phys.arm.replace(q=jnp.asarray(q))))
+
+
+def make_envs(jax_lib, jax_params=None, params=None):
+    """(JAX env, port env on the CPU), by default with `use_planner=False`,
+    the port's library carried over from the JAX one."""
     lib = library_from_arrays(jax_lib.names, **{k: np.asarray(getattr(jax_lib, k))
                                                  for k in LIBRARY_FIELDS})
-    return (JaxPandaGraspEnv(JaxEnvParams(use_planner=False), jax_lib),
-            PandaGraspEnv(EnvParams(use_planner=False), lib, device="cpu"))
+    return (JaxPandaGraspEnv(jax_params or JaxEnvParams(use_planner=False), jax_lib),
+            PandaGraspEnv(params or EnvParams(use_planner=False), lib, device="cpu"))
 
 
 def numpy_tree(x):
