@@ -134,3 +134,11 @@ def mat_to_euler(m):
 
 def euler_to_quat(e):
     return mat_to_quat(euler_to_mat(e))
+
+
+def quat_integrate(q, omega, dt):
+    """Integrate unit quaternion(s) q (..., 4) by world-frame angular
+    velocity omega (..., 3) over dt: normalize(q + 0.5 dt omega_q * q).
+    Stable for the small per-substep rotations of the physics loop."""
+    omega_q = torch.cat([torch.zeros_like(omega[..., :1]), omega], dim=-1)
+    return quat_normalize(q + 0.5 * dt * quat_mul(omega_q, q))

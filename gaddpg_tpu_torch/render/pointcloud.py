@@ -5,7 +5,11 @@ Each step's backprojected target points enter a world-frame reservoir
 with a retention ratio of 0.95^step on the new points; the policy state
 resamples 1024 of them into the hand frame beside the 6 hand anchor
 points (reference: env/panda_scene.py:698-714,1178-1206). Channel 3 of
-the state labels the anchors 1 and target points 0.
+the state labels the anchors 1, target points 0 and, in clutter scenes,
+obstacle points -1: an extension past the reference's target-only cloud,
+whose clutter policies are collision-blind (reference:
+env/panda_scene.py:1078-1095), so that the policy can see what it must
+avoid.
 
 The reservoir ring-writes contiguously from slot 0, so its valid region
 is [0, min(count, capacity)): insertion is a prefix-sum scatter and
@@ -22,6 +26,7 @@ from gaddpg_tpu_torch.utils.constants import const
 
 TARGET_LABEL = 0.0
 HAND_LABEL = 1.0
+OBSTACLE_LABEL = -1.0
 
 
 @dataclasses.dataclass
@@ -46,10 +51,12 @@ def num_valid(pc: PointCloudState):
 
 
 def accumulate_points(pc: PointCloudState, keep_u, new_points, new_valid, env_step,
-                      accumulate_ratio: float = 0.95) -> PointCloudState:
+                      accumulate_ratio: float = 0.95,
+                      label: float = TARGET_LABEL) -> PointCloudState:
     """Keep the new points (B, n, 3) whose uniform draw keep_u (B, n) is
     below accumulate_ratio**env_step, among the valid ones, and
-    ring-write them over the oldest entries."""
+    ring-write them over the oldest entries, labelled `label`
+    (TARGET_LABEL or OBSTACLE_LABEL)."""
     b, n = keep_u.shape
     cap = pc.points.shape[1]
     ratio = const((accumulate_ratio,), keep_u.device)
@@ -61,7 +68,7 @@ def accumulate_points(pc: PointCloudState, keep_u, new_points, new_valid, env_st
     points = torch.cat([pc.points, pc.points.new_zeros(b, 1, 3)], dim=1)
     points = points.scatter(1, idx[..., None].expand(b, n, 3), new_points)[:, :cap]
     labels = torch.cat([pc.labels, pc.labels.new_zeros(b, 1)], dim=1)
-    labels = labels.scatter(1, idx, torch.full_like(keep_u, TARGET_LABEL))[:, :cap]
+    labels = labels.scatter(1, idx, torch.full_like(keep_u, label))[:, :cap]
     return PointCloudState(points=points, labels=labels, count=pc.count + n_keep,
                            cursor=(pc.cursor + n_keep) % cap)
 

@@ -17,6 +17,7 @@ from gaddpg_tpu_torch.agents.ddpg import make_ddpg_update
 from gaddpg_tpu_torch.agents.state import create_agent_state
 from gaddpg_tpu_torch.envs.assets import library_from_index
 from gaddpg_tpu_torch.envs.grasp_env import PandaGraspEnv
+from gaddpg_tpu_torch.envs.scenes import scene_slice
 from gaddpg_tpu_torch.train.checkpoints import save_agent
 from gaddpg_tpu_torch.train.config import TrainConfig
 from gaddpg_tpu_torch.train.metrics import MetricLogger, ObjectPerformance
@@ -172,18 +173,23 @@ class Trainer:
         return self.obj_perf
 
     # ------------------------------------------------------------------
-    def evaluate(self, episodes: int = 1, scenes=None):
-        """Policy evaluation waves on freshly
-        randomised scenes -> (success rate over valid scenes, per-object
-        table). A fixed scene set (`scenes`) needs envs/scenes.py, which
-        is not ported yet."""
-        if scenes is not None:
-            raise NotImplementedError("evaluation on a fixed scene set needs envs/scenes.py, "
-                                      "which is not ported yet")
+    def evaluate(self, episodes: int = 1, scenes=None, expert: bool = False):
+        """Policy (or, with `expert`, expert-baseline) evaluation waves ->
+        (success rate over valid scenes, per-object table). With `scenes`
+        (a scene set from envs/scenes.py) the protocol is deterministic:
+        wave w evaluates scenes [w * num_envs, ...), wrapping around, as the
+        reference's fixed scene_{k} loop does; else freshly randomised
+        scenes."""
         total, ok = 0, 0
         perf = ObjectPerformance(self.lib.names)
-        for _ in range(episodes):
-            out = self.worker.evaluate(self.agent_state, self.generator)
+        n = self.cfg.num_envs
+        for w in range(episodes):
+            if scenes is not None:
+                out = self.worker.evaluate_scenes(self.agent_state,
+                                                  scene_slice(scenes, w * n, n),
+                                                  self.generator, expert=expert)
+            else:
+                out = self.worker.evaluate(self.agent_state, self.generator, expert=expert)
             v = out["valid_scene"].cpu().numpy()
             r = out["success"].cpu().numpy()
             perf.update(out["obj_idx"].cpu().numpy(), r, v)

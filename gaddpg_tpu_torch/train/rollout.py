@@ -209,17 +209,23 @@ class RolloutWorker:
 
     # ------------------------------------------------------------------
     @torch.no_grad()
-    def evaluate(self, agent_state, generator=None, draws=None):
-        """Policy evaluation on freshly randomised scenes."""
+    def evaluate(self, agent_state, generator=None, draws=None, expert=False):
+        """Policy evaluation on freshly randomised scenes; with `expert`,
+        the expert's (the reference's --expert A/B baseline,
+        reference: core/train_test_offline.py:208-223)."""
         states, obs = self.env.reset(self.cfg.num_envs, generator,
                                      None if draws is None else draws["reset"])
-        return self._eval_from(agent_state, states, obs, generator, draws)
+        return self._eval_from(agent_state, states, obs, generator, draws, expert)
 
-    def evaluate_scenes(self, agent_state, scenes, generator=None):
-        raise NotImplementedError("evaluation on a fixed scene set needs envs/scenes.py, "
-                                  "which is not ported yet")
+    @torch.no_grad()
+    def evaluate_scenes(self, agent_state, scenes, generator=None, expert=False):
+        """Policy (or, with `expert`, expert) evaluation on a fixed scene
+        set of num_envs scenes (envs/scenes.py), the reproducible protocol
+        (reference: core/train_test_offline.py:176-256)."""
+        states, obs = self.env.reset_scene(scenes, generator)
+        return self._eval_from(agent_state, states, obs, generator, expert=expert)
 
-    def _eval_from(self, agent_state, states, obs, generator=None, draws=None):
+    def _eval_from(self, agent_state, states, obs, generator=None, draws=None, expert=False):
         cfg, env, dev = self.cfg, self.env, self.device
         n = cfg.num_envs
         valid_scene = states.valid_scene
@@ -230,8 +236,11 @@ class RolloutWorker:
             plan_len = env.expert_steps(states)
         done = torch.zeros(n, dtype=torch.bool, device=dev)
         for t in range(cfg.rollout_horizon):
-            remain = torch.clamp(plan_len - float(t), min=1.0)
-            action, _ = self.select_action(agent_state, obs.point_state, remain)
+            if expert:
+                action = env.expert_action(states)
+            else:
+                remain = torch.clamp(plan_len - float(t), min=1.0)
+                action, _ = self.select_action(agent_state, obs.point_state, remain)
             env_draws = None if draws is None else draws["steps"][t]["env"]
             new_states, new_obs, _, new_done, _ = env.step_batched(states, action, generator,
                                                                    env_draws)

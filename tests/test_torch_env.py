@@ -77,8 +77,8 @@ def test_library_equals_jax(index, split):
 def test_unported_options_and_device():
     lib = assets.box_asset(0.05, 0.05, 0.14)
     assert PandaGraspEnv(EnvParams(), lib, device="cpu").p.use_planner  # the default: CHOMP
-    for params in (EnvParams(num_clutter=2), EnvParams(use_image=True),
-                   EnvParams(domain_rand=True)):
+    assert PandaGraspEnv(EnvParams(num_clutter=2), lib, device="cpu").p.num_clutter == 2
+    for params in (EnvParams(use_image=True), EnvParams(domain_rand=True)):
         with pytest.raises(NotImplementedError):
             PandaGraspEnv(params, lib, device="cpu")
     if not torch.cuda.is_available():

@@ -458,10 +458,11 @@ def test_unported_options_raise(tmp_path):
     with pytest.raises(NotImplementedError, match="mesh"):
         Trainer(dryrun_config(tmp_path), lib=lib, mesh=object(), device="cpu")
     tr = Trainer(dryrun_config(tmp_path), lib=lib, device="cpu")
-    with pytest.raises(NotImplementedError, match="scenes"):
-        tr.evaluate(scenes={"obj_idx": np.zeros(4)})
-    with pytest.raises(NotImplementedError, match="scenes"):
-        tr.worker.evaluate_scenes(tr.agent_state, {})
+    with pytest.raises(NotImplementedError, match="mesh"):
+        RolloutWorker(tr.env, tr.cfg.agent, tr.cfg, mesh=object(), device="cpu")
+    with pytest.raises(NotImplementedError, match="image"):
+        RolloutWorker(tr.env, dataclasses.replace(tr.cfg.agent, use_image=True), tr.cfg,
+                      device="cpu")
 
 
 def test_trainer_defaults_to_the_card(tmp_path):

@@ -5,6 +5,7 @@ package's random draws as tensors for the port; the planner's chaos rule
 test_torch_train_planner.py)."""
 
 import dataclasses
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -79,7 +80,19 @@ def jax_retract_batched(jenv, states):
     """The JAX package's `retract_batched` (close the fingers for 2 x
     substeps, then `retract_lift_steps` x (IK 3 cm up, physics step),
     score the lift), with its steps unrolled in Python so that the close
-    and one lift step compile once each instead of as one scan."""
+    and one lift step compile once each (once per env) instead of as one
+    scan."""
+    close, lift = _jax_retract_parts(jenv)
+    states = close(states)
+    for _ in range(jenv.p.retract_lift_steps):
+        states = lift(states)
+    lifted = (states.phys.obj.pos[:, 2] - states.init_obj_z) > jenv.p.lift_height
+    return states, np.asarray(lifted, np.float32)
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_retract_parts(jenv):
+    """The jitted close and lift step of `jax_retract_batched` for `jenv`."""
     from gaddpg_tpu.robot.ik import dls_ik
 
     p = jenv.p
@@ -100,24 +113,59 @@ def jax_retract_batched(jenv, states):
 
         return jenv._physics_batched(set_target(s, jax.vmap(one)(s)))
 
-    states = jax.jit(close)(states)
-    lift = jax.jit(lift)
-    for _ in range(p.retract_lift_steps):
-        states = lift(states)
-    lifted = (states.phys.obj.pos[:, 2] - states.init_obj_z) > p.lift_height
-    return states, np.asarray(lifted, np.float32)
+    return jax.jit(close), jax.jit(lift)
 
 
-def observe_draws(obs_keys, count, capacity=2048, n_new=512, n_pts=1024):
+def observe_draws(obs_keys, count, capacity=2048, n_new=512, n_pts=1024, n_clutter=0):
     """The draws the JAX `_observe_impl` makes from its per-env keys:
-    keep-uniforms and the resample indices below max(num_valid, 1), where
-    `count` is the JAX reservoir count after this observation."""
-    keep, idx = [], []
+    keep-uniforms, with clutter (`n_clutter` obstacle points per step) the
+    obstacle points' keep-uniforms, and the resample indices below
+    max(num_valid, 1), where `count` is the JAX reservoir count after this
+    observation."""
+    keep, ckeep, idx = [], [], []
     for k, c in zip(obs_keys, np.asarray(count)):
-        k1, k2, _ = jax.random.split(k, 3)
+        k1, k2, k3 = jax.random.split(k, 3)
         keep.append(np.asarray(jax.random.uniform(k1, (n_new,))))
+        ckeep.append(np.asarray(jax.random.uniform(k3, (n_clutter,))))
         idx.append(np.asarray(jax.random.randint(k2, (n_pts,), 0, max(min(int(c), capacity), 1))))
-    return {"keep_u": torch.as_tensor(np.stack(keep)), "idx": torch.as_tensor(np.stack(idx))}
+    out = {"keep_u": torch.as_tensor(np.stack(keep)), "idx": torch.as_tensor(np.stack(idx))}
+    if n_clutter:
+        out["clutter_keep_u"] = torch.as_tensor(np.stack(ckeep))
+    return out
+
+
+def env_observe_draws(jenv, obs_keys, count):
+    """`observe_draws` at the sizes of the JAX env `jenv`."""
+    p = jenv.p
+    return observe_draws(obs_keys, count, p.pc_capacity, p.new_points_per_step,
+                         p.uniform_num_pts,
+                         p.clutter_points_per_step if p.num_clutter else 0)
+
+
+def jax_state(state):
+    """A JAX EnvState (vis_seed 0) from a port EnvState on the CPU: the
+    inverse of `port_state`."""
+    from gaddpg_tpu.envs.grasp_env import EnvState as JaxEnvState
+    from gaddpg_tpu.physics import types as jtypes
+    from gaddpg_tpu.render.pointcloud import PointCloudState as JaxPointCloudState
+
+    def j(t, dtype=None):
+        a = t.numpy()
+        return jnp.asarray(a if dtype is None else a.astype(dtype))
+
+    ph, arm, obj = state.phys, state.phys.arm, state.phys.obj
+    fields = {f.name: j(getattr(state, f.name), np.int32 if getattr(state, f.name).dtype
+                        in (torch.int64, torch.int32) else None)
+              for f in dataclasses.fields(state) if f.name not in ("phys", "pc")}
+    return JaxEnvState(
+        phys=jtypes.PhysicsState(
+            arm=jtypes.ArmState(q=j(arm.q), qd=j(arm.qd), q_target=j(arm.q_target)),
+            obj=jtypes.BodyState(pos=j(obj.pos), quat=j(obj.quat), linvel=j(obj.linvel),
+                                 angvel=j(obj.angvel)),
+            contact_force=j(ph.contact_force), gripper_contact=j(ph.gripper_contact)),
+        pc=JaxPointCloudState(points=j(state.pc.points), labels=j(state.pc.labels),
+                              count=j(state.pc.count), cursor=j(state.pc.cursor)),
+        vis_seed=jnp.zeros(state.obj_idx.shape[0], jnp.int32), **fields)
 
 
 def point_state_mismatch(port_ps, jax_ps, tol=1e-4):
