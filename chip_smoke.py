@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch port (`gaddpg_tpu_torch`) on one CUDA card.
 
     python3 chip_smoke.py [--scale2-seeds A-B [--plain-on-card K5,K6]]
-                          [--k5-scale EPS,...] [--loop] [--planner] [--clutter]
+                          [--k5-scale EPS,...] [--loop] [--planner] [--clutter] [--proc]
 
 Phases, each of which must pass:
   1. build the CUDA kernels of K1 FPS, K2 ball query, K3 eval SA
@@ -188,25 +188,44 @@ Phases, each of which must pass:
      td3_clutter.yaml"), lib=library_from_index("ycb", "train"))`
      iteration at its own sizes (256 envs of EnvParams(num_clutter=2,
      use_planner=True), DAgger, 20 DDPG updates of 128 + 128 on-policy
-     rows x 1030 points, rings of 500,000 and 100,000): a counted warm-up
-     iteration (K1-K4 at every step, K7 never: physics/multi.py steps the
-     clutter; K1, K2, K5, K6 in the updates), a timed one split into reset
+     rows x 1030 points, rings of 500,000 and 100,000): one iteration,
+     counted (K1-K4 at every step, K7 never: physics/multi.py steps the
+     clutter; K1, K2, K5, K6 in the updates) and timed, split into reset
      (its planner), steps, DAgger replans, retract, insert and train_iter,
-     env steps/s, and one step, DAgger replan and update profiled for the
-     device's busy and idle share; then the clutter path at B=8 on the
+     env steps/s, and one step and update profiled for the device's busy
+     and idle share; then the clutter path at B=8 on the
      card and on the CPU (`clutter_card_vs_cpu` says by which rules: phase
      9's with the clutter bodies, near-tied grasp goals, phase 8's planner
      rule with the verdict's own flips) and generate_scenes ->
      Trainer.evaluate(scenes=, expert=True) with the same valid flags; and
      physics/multi.py with its clutter parked far away against K7 at
      B=256 over 60 substeps within phase 7's bounds. --clutter runs this
-     phase alone.
+     phase alone;
+ 13. a procedural library and the GoalFeature trainer:
+     `library_from_index("proc_shapenet:4")` built on the host's CPU (the
+     mesh pipeline, the physics-verified grasps; seconds, grasp and sphere
+     counts, whether native/libmesh_tools.so was built) in a child
+     process that a full run starts before phase 2 (`LibraryBuild`); one TrainConfig()
+     iteration on it at 1024 envs, as phase 11 runs it ("[proc]" lines:
+     launches, the second iteration's split); K7 at B=64 over 75
+     substeps on that reset's mesh scenes (padding spheres parked at
+     z = 1e3) under phase 7's rule, K1 and K2 on its clouds as phase 9
+     checks them, K3 and K4 within phase 2's bounds; then
+     `cli.train_goal.main` at its defaults (batch 32, 512-point clouds,
+     64 x 64 camera) for 20 steps, counted (per update K1 2x, K2 2x, K5
+     2x, K6 1x), losses finite; the generator at B=64 card vs CPU on the
+     same draws (rule (c)); K1, K2, K5 and K6 against their plain
+     versions at the GoalFeature's shapes (6 input columns, 128 centres,
+     zero rows), K5 and K6 timed; one GoalFeature update card vs CPU
+     from a common state under phase 6's rule. --proc runs this phase
+     alone.
 
 Prints the card's name and power limit (nvidia-smi), then one JSON line
 with every kernel's numbers (launches: K1-K4 over the phase-3 calls, K5/K6
 over the phase-6 updates, K7 over the phase-8 env path;
 launches_per_train_iter over phase 11's collect and train_iter,
-launches_per_clutter_iter over phase 12's; ms, plain_ms,
+launches_per_clutter_iter over phase 12's, launches_per_goal_update over
+phase 13's cli.train_goal steps; ms, plain_ms,
 bound_ms: K1-K4 summed over the kernel's levels in one forward at
 B=1024 on the synthetic serving clouds, K5/K6 over their levels in one policy-encoder train forward at
 B=256, K7 one 75-substep launch at B=1024), then as the last line
@@ -216,6 +235,7 @@ no CUDA card is available or any phase fails.
 
 import argparse
 import contextlib
+import copy
 import dataclasses
 import json
 import os
@@ -300,6 +320,18 @@ MULTI_FAST_BATCH = 256        # physics/multi.py (far clutter) against K7
 LOOP_ENVS = 1024              # the train loop's env count: bench.py's
 LOOP_SEED = 11                # the B=8 loop check's generators
 ENV_STEPS = 20                # RL_MAX_STEP
+# phase 13: a procedural library and the GoalFeature trainer
+PROC_INDEX, PROC_OBJECTS = "proc_shapenet:4", 4
+PROC_K7_BATCH = 64
+LIBRARY_BUILD_TIMEOUT = 600   # s, the child's library build
+GOAL_STEPS = 20               # cli.train_goal steps
+GOAL_BATCH = 32               # cli.train_goal's default batch
+GOAL_CHECK_BATCH = 64         # the generator card vs CPU
+GOAL_LR = 1e-3                # cli.train_goal's default
+GOAL_LEVELS = (("SA1", 128, 0.02, 64), ("SA2", 32, 0.04, 128))  # GoalFeature's grouped levels
+# a GoalFeature update: one train forward (the backward is the plain recompute)
+GOAL_PER_UPDATE = {"fps": 2, "ball_query": 2, "sa_gather_mlp": 0, "mlp_maxpool": 0,
+                   "sa_train": 2, "groupall_train": 1, "contact_scan": 0}
 # K7 against its plain version: (batch, substeps); 60 is
 # tests/test_pallas_physics.py's horizon, 75 a step, 150 the retract's
 # close, 200 the reset's settle; 64 is TrainConfig's env count
@@ -884,6 +916,7 @@ class Smoke:
         self.launches = {}
         self.per_iter = {}  # launches over one train iteration (phase 11)
         self.per_clutter_iter = {}  # and over one td3_clutter iteration (phase 12)
+        self.per_goal_update = {}  # and per GoalFeature update (phase 13)
         self.card = card_line()
         self._scale2 = None
 
@@ -953,21 +986,27 @@ class Smoke:
                      # the same clouds and centres at either scale
                      if not (tag and kernel in ("fps", "ball_query"))]
             for kernel, label, args in calls:
-                got = self.wrappers[kernel](*args)
-                torch.cuda.synchronize()
-                want = self.reference(kernel)(*args)
-                torch.cuda.synchronize()
-                if got.dtype == torch.int32:
-                    if not torch.equal(got, want):
-                        bad = (got != want).sum().item()
-                        raise AssertionError(f"{kernel} {label} B={batch}: {bad} indices differ")
-                    err = 0.0
-                else:
-                    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
-                    err = (got - want).abs().max().item()
-                self.errors[kernel] = max(self.errors[kernel], err)
-                log(f"[check] {kernel:13s} {label} B={batch:4d} "
-                    f"shape={tuple(got.shape)} max_abs_err={err:.3e} ok")
+                self.check_call(kernel, label, args)
+
+    def check_call(self, kernel, label, args):
+        """A serving kernel against its plain version: indices equal,
+        floats within 1e-4 (phase 2's bounds)."""
+        batch = args[0].shape[0]
+        got = self.wrappers[kernel](*args)
+        torch.cuda.synchronize()
+        want = self.reference(kernel)(*args)
+        torch.cuda.synchronize()
+        if got.dtype == torch.int32:
+            if not torch.equal(got, want):
+                bad = (got != want).sum().item()
+                raise AssertionError(f"{kernel} {label} B={batch}: {bad} indices differ")
+            err = 0.0
+        else:
+            torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+            err = (got - want).abs().max().item()
+        self.errors[kernel] = max(self.errors[kernel], err)
+        log(f"[check] {kernel:13s} {label} B={batch:4d} shape={tuple(got.shape)} "
+            f"max_abs_err={err:.3e} ok")
 
     def check_fps(self, gen, clouds=None):
         """K1's indices exactly equal to fps_reference's: on tie-heavy
@@ -1958,7 +1997,7 @@ class Smoke:
         off = (r > 1) | (out[:, 15] != want[:, 15])
         return r.sort(descending=True).values, int(off.sum())
 
-    def check_contact_scan(self, env, gen):
+    def check_contact_scan(self, env, gen, kinds=None, cases=K7_CASES):
         """K7 against its plain version on the card. Where an env's
         trajectory is chaotic (a grasp at the edge of slipping: the plain
         version itself moves past the bounds when its object position is
@@ -1977,13 +2016,17 @@ class Smoke:
         of its envs may be off the bounds than the largest batch excused
         (at B=64 one env is 1.6% of the batch, so the share is counted
         over the whole batch the envs come from), each held as above
-        (rank by rank against the largest batch's nudge)."""
+        (rank by rank against the largest batch's nudge). `kinds`, [(label,
+        (state, spheres, mass, inertia))], and `cases`, [(batch, substeps)],
+        replace the contact-rich and live states of K7_CASES."""
         cs = self.cs
-        rich = self.contact_rich_states(max(b for b, _ in K7_CASES), gen)
-        live = self.rollout_states(env, gen)
-        self.k7_live = live
-        cases = sorted(K7_CASES, key=lambda c: (c[1], -c[0]))  # largest batch first
-        for kind, full in (("contact-rich", rich), ("rollout", live)):
+        if kinds is None:
+            rich = self.contact_rich_states(max(b for b, _ in K7_CASES), gen)
+            live = self.rollout_states(env, gen)
+            self.k7_live = live
+            kinds = (("contact-rich", rich), ("rollout", live))
+        cases = sorted(cases, key=lambda c: (c[1], -c[0]))  # largest batch first
+        for kind, full in kinds:
             # n -> (the largest batch's output, how many envs it excused, one
             # nudge's departures over that batch, largest first)
             largest = {}
@@ -2616,7 +2659,7 @@ class Smoke:
 
 
     # -- phase 11: the online train loop ---------------------------------------------------
-    def loop_path(self):
+    def loop_path(self, lib=None, tag="loop", profile=True):
         """One `Trainer` iteration at full width, as a user runs it: the
         default TrainConfig (batch 256 x 1030 points, 4 DDPG updates, a
         100,000-transition ring) at LOOP_ENVS envs with its own EnvParams()
@@ -2626,8 +2669,10 @@ class Smoke:
         at every one of the horizon's steps and K7 through reset, steps and
         retract; train_iter K1, K2, K5, K6 through the four updates. A
         second iteration gives the times of record (the first pays for the
-        first CUDA update and the allocations) and its parts' profile.
-        Returns {kernel: launches over the first iteration}."""
+        first CUDA update and the allocations) and, with `profile`, its
+        parts' profile. `lib` replaces the YCB proxies and `tag` labels the
+        lines. Returns {kernel: launches over the first iteration}; the
+        Trainer and the first iteration's record stay in `self.loop_run`."""
         import tempfile
 
         from gaddpg_tpu_torch.envs.assets import library_from_index
@@ -2638,12 +2683,12 @@ class Smoke:
                                      "output_dir": tempfile.mkdtemp(prefix="loop_")},
                           policy="DDPG")
         if not cfg.env.use_planner:
-            raise AssertionError("loop: TrainConfig()'s EnvParams() runs the CHOMP planner")
+            raise AssertionError(f"{tag}: TrainConfig()'s EnvParams() runs the CHOMP planner")
         t0 = time.perf_counter()
-        tr = Trainer(cfg, lib=library_from_index("ycb", "train"))  # device="cuda"
+        tr = Trainer(cfg, lib=lib or library_from_index("ycb", "train"))  # device="cuda"
         torch.cuda.synchronize()
-        log(f"[loop] Trainer at {LOOP_ENVS} envs, batch {cfg.batch_size} x "
-            f"{cfg.env.uniform_num_pts + 6} points, {cfg.updates_per_iter} updates per "
+        log(f"[{tag}] Trainer on {tr.lib.num_objects} objects at {LOOP_ENVS} envs, batch "
+            f"{cfg.batch_size} x {cfg.env.uniform_num_pts + 6} points, {cfg.updates_per_iter} updates per "
             f"train_iter, ring of {cfg.buffer_size}: replay {tr.buffer.nbytes} bytes on the "
             f"card ({tr.buffer.point_state.nbytes} of them point states); set up in "
             f"{(time.perf_counter() - t0) * 1e3:.1f} ms ({card})")
@@ -2657,20 +2702,20 @@ class Smoke:
         want_collect["contact_scan"] = RESET_K7 + STEP_K7 * horizon + RETRACT_K7
         want_train = {k: v * cfg.updates_per_iter for k, v in DDPG_PER_UPDATE.items()}
         if collect_counts != want_collect or train_counts != want_train:
-            raise AssertionError(f"loop: launches {collect_counts} in collect, {train_counts} "
+            raise AssertionError(f"{tag}: launches {collect_counts} in collect, {train_counts} "
                                  f"in train_iter; expected {want_collect}, {want_train}")
         per_iter = {k: collect_counts[k] + train_counts[k] for k in self.wrappers}
         if min(per_iter.values()) == 0:
-            raise AssertionError(f"loop: a kernel was not launched: {per_iter}")
+            raise AssertionError(f"{tag}: a kernel was not launched: {per_iter}")
         if stats["buffer_idx"] <= 0 or tr.update_step != cfg.updates_per_iter:
-            raise AssertionError(f"loop: buffer_idx {stats['buffer_idx']}, update_step "
+            raise AssertionError(f"{tag}: buffer_idx {stats['buffer_idx']}, update_step "
                                  f"{tr.update_step}")
         bad = [k for k, v in {**stats, **metrics}.items() if not np.isfinite(v)]
         if bad or not metrics:
-            raise AssertionError(f"loop: non-finite or missing metrics {bad} {metrics}")
-        log(f"[loop] launches per train iteration (collect + train_iter): {per_iter}; collect "
+            raise AssertionError(f"{tag}: non-finite or missing metrics {bad} {metrics}")
+        log(f"[{tag}] launches per train iteration (collect + train_iter): {per_iter}; collect "
             f"{collect_counts}, train_iter {train_counts} ({card})")
-        log(f"[loop] first iteration (cold: first CUDA update, allocations): collect "
+        log(f"[{tag}] first iteration (cold: first CUDA update, allocations): collect "
             f"{first['collect_ms']:.3f} ms, train_iter {first['train_ms']:.3f} ms; buffer_idx "
             f"{stats['buffer_idx']}, update_step {tr.update_step}; metrics " + ", ".join(
                 f"{k} {v:.5g}" for k, v in metrics.items()) + f" ({card})")
@@ -2679,26 +2724,28 @@ class Smoke:
         spans, collect_ms, train_ms, stats = it["spans"], it["collect_ms"], it["train_ms"], \
             it["stats"]
         steps = LOOP_ENVS * horizon
-        log(f"[loop] collect: {collect_split(spans, collect_ms, horizon)} (host clock, "
+        log(f"[{tag}] collect: {collect_split(spans, collect_ms, horizon)} (host clock, "
             f"synchronised around each; second iteration; {card})")
-        log(f"[loop] collect: {steps} env steps ({LOOP_ENVS} envs x {horizon}), "
+        log(f"[{tag}] collect: {steps} env steps ({LOOP_ENVS} envs x {horizon}), "
             f"{steps / collect_ms * 1e3:.1f} env steps/s; {it['inserted']} valid "
             f"transitions inserted, {it['inserted'] / collect_ms * 1e3:.1f}/s; "
             f"valid scenes {stats['valid_scene_frac']:.4f}, success "
             f"{stats['rollout_success']:.4f}, explore share {stats['explore_frac']:.4f} ({card})")
-        log(f"[loop] train_iter: {train_ms:.3f} ms, {train_ms / cfg.updates_per_iter:.3f} ms per "
+        log(f"[{tag}] train_iter: {train_ms:.3f} ms, {train_ms / cfg.updates_per_iter:.3f} ms per "
             f"update, update_step {tr.update_step}; iteration {collect_ms + train_ms:.3f} ms "
             f"(second iteration; {card})")
-        self.loop_profile(tr, it)
+        self.loop_run = (tr, first)
+        if profile:
+            self.loop_profile(tr, it)
         return per_iter
 
     def timed_iteration(self, tr, counts=False):
         """One collect and one train_iter of `tr`, the collect's env calls
         and replay insert timed (host clock, synchronised around each), each
-        call counted and the first call's arguments kept."""
+        call counted and the first call's arguments and output kept."""
         from gaddpg_tpu_torch import replay
 
-        spans, active, calls, first = {}, [], {}, {}
+        spans, active, calls, first, first_out = {}, [], {}, {}, {}
 
         def timed(name, fn):
             def call(*args, **kwargs):
@@ -2710,6 +2757,7 @@ class Smoke:
                 active.append(key)
                 t = time.perf_counter()
                 out = fn(*args, **kwargs)
+                first_out.setdefault(key, out)
                 torch.cuda.synchronize()
                 active.pop()
                 spans[key] = spans.get(key, 0.0) + (time.perf_counter() - t) * 1e3
@@ -2723,7 +2771,7 @@ class Smoke:
         env.retract_batched = timed("retract", env.retract_batched)
         add_episodes = replay.add_episodes
         replay.add_episodes = timed("insert", add_episodes)
-        out = {"spans": spans, "calls": calls, "first": first}
+        out = {"spans": spans, "calls": calls, "first": first, "first_out": first_out}
         try:
             before = tr.buffer.total_env_step
             torch.cuda.synchronize()
@@ -3063,9 +3111,11 @@ class Smoke:
         500,000-transition ring beside a 100,000 on-policy one. The first
         iteration is counted: collect launches K1-K4 through select_action at
         every step and no K7 (physics/multi.py steps the clutter scenes);
-        train_iter K1, K2, K5, K6 through the updates. A second iteration
-        gives the times of record and its parts' profile. Returns {kernel:
-        launches over the first iteration}."""
+        train_iter K1, K2, K5, K6 through the updates. The same iteration
+        gives the times of record (host-bound: a second iteration reads
+        within the spread of the first across hosts) and its parts' profile
+        (a step and an update; phase 8 profiles a replan). Returns {kernel:
+        launches over the iteration}."""
         import tempfile
 
         from gaddpg_tpu_torch.envs.assets import library_from_index
@@ -3111,23 +3161,24 @@ class Smoke:
         log(f"[clutter] launches per train iteration (collect + train_iter): {per_iter}; "
             f"collect {collect_counts} (K7 0: physics/multi.py steps the clutter), train_iter "
             f"{train_counts} ({card})")
-        log(f"[clutter] first iteration (warm-up): collect {first['collect_ms']:.3f} ms, "
+        log(f"[clutter] iteration: collect {first['collect_ms']:.3f} ms, "
             f"train_iter {first['train_ms']:.3f} ms; buffer_idx {stats['buffer_idx']}, "
             f"on-policy {tr.online_buffer.cur_idx}, update_step {tr.update_step}; metrics "
             + ", ".join(f"{k} {v:.5g}" for k, v in metrics.items()) + f" ({card})")
-        it = self.timed_iteration(tr)
-        collect_ms, train_ms, stats = it["collect_ms"], it["train_ms"], it["stats"]
+        it = first
+        collect_ms, train_ms = it["collect_ms"], it["train_ms"]
         steps = cfg.num_envs * horizon
         log(f"[clutter] collect: {collect_split(it['spans'], collect_ms, horizon)} (host clock, "
-            f"synchronised around each; second iteration; {card})")
+            f"synchronised around each; the counted iteration; {card})")
         log(f"[clutter] collect: {steps} env steps ({cfg.num_envs} envs x {horizon}), "
             f"{steps / collect_ms * 1e3:.1f} env steps/s; {it['inserted']} valid transitions "
             f"inserted; valid scenes {stats['valid_scene_frac']:.4f}, success "
             f"{stats['rollout_success']:.4f}, collisions {stats['collide_frac']:.4f}, explore "
             f"share {stats['explore_frac']:.4f} ({card})")
         log(f"[clutter] train_iter: {train_ms:.3f} ms, {train_ms / cfg.updates_per_iter:.3f} ms "
-            f"per update; iteration {collect_ms + train_ms:.3f} ms (second iteration; {card})")
-        self.loop_profile(tr, it, label="clutter iteration", replan=True)
+            f"per update; iteration {collect_ms + train_ms:.3f} ms (the counted iteration; {card})")
+        # phase 8 profiles a replan at B=1024; here a step and an update
+        self.loop_profile(tr, it, label="clutter iteration")
         del tr
         torch.cuda.empty_cache()
         return per_iter
@@ -3335,6 +3386,235 @@ class Smoke:
             f"within {r[keep].max().item():.3f} of the phase-7 bounds, arm {arm:.1e}{note}; "
             f"gripper contact in {int(out_f.gripper_contact.sum())} envs ok")
 
+    # -- phase 13: the procedural library and the GoalFeature trainer -------------
+    def proc_library(self, build):
+        """The library of `build` (a `LibraryBuild` of PROC_INDEX, started
+        at the run's start), as a user's `library_from_index(PROC_INDEX)`
+        builds it on the CPU (the mesh pipeline and its physics-verified
+        grasps are host work): its seconds, each object's grasp and sphere
+        counts."""
+        lib, info = build.result()
+        grasps = lib.grasp_valid.sum(dim=1).tolist()
+        spheres = (lib.spheres[..., 3] > 0).sum(dim=1).tolist()
+        if lib.num_objects != PROC_OBJECTS or min(grasps) == 0 or min(spheres) == 0:
+            raise AssertionError(f"proc: {lib.num_objects} objects, grasps {grasps}, spheres "
+                                 f"{spheres}")
+        secs = info["seconds"]
+        log(f"[proc] library_from_index({PROC_INDEX!r}) on the CPU: {lib.num_objects} objects "
+            f"{lib.names} in {secs:.1f} s ({secs / lib.num_objects:.1f} s per object, the host's "
+            f"CPU, {info['where']}); verified grasps {grasps}, spheres {spheres}; native mesh "
+            f"library (native/libmesh_tools.so) available: {info['native']}")
+        return lib
+
+    def proc_kernels(self, tr, first, gen):
+        """K7 at B = PROC_K7_BATCH, n = 75, on the first envs of the
+        procedural iteration's reset (mesh sphere sets, padding spheres
+        parked at z = 1e3), the fingers closing, under phase 7's rule; K1
+        and K2 on that reset's clouds (`check_fps`, `check_ball_query`) and
+        K3 and K4 at phase 2's bounds on its point states."""
+        state, obs = first["first_out"]["reset"]
+        b = PROC_K7_BATCH
+        phys = state.phys
+        q_target = phys.arm.q_target[:b].clone()
+        q_target[:, 7:9] = 0.0
+        sub = dataclasses.replace(
+            phys, arm=type(phys.arm)(q=phys.arm.q[:b], qd=phys.arm.qd[:b], q_target=q_target),
+            obj=type(phys.obj)(*(t[:b] for t in (phys.obj.pos, phys.obj.quat, phys.obj.linvel,
+                                                 phys.obj.angvel))),
+            contact_force=phys.contact_force[:b], gripper_contact=phys.gripper_contact[:b])
+        idx = state.obj_idx[:b]
+        lib = tr.env.lib
+        parked = (lib.spheres[idx, :, 3] == 0).sum().item()
+        self.check_contact_scan(None, gen, kinds=(("proc reset", (
+            sub, lib.spheres[idx], lib.mass[idx], lib.inertia[idx])),), cases=((b, 75),))
+        log(f"[proc] K7 on the procedural reset's scenes: B={b}, {parked} padding spheres "
+            f"parked among {b * lib.spheres.shape[1]} ok")
+        ps = obs.point_state
+        with torch.no_grad():
+            clouds = ps[:, :3, 6:].transpose(1, 2)
+            self.check_fps(None, clouds)
+            self.check_ball_query(None, clouds)
+            for kernel, level in self.level_inputs(ps).items():
+                if kernel in ("sa_gather_mlp", "mlp_maxpool"):
+                    for label, args in level:
+                        self.check_call(kernel, f"proc reset {label}", args)
+
+    def goal_train(self, lib):
+        """`cli.train_goal.main` at its defaults (batch 32, 512-point clouds,
+        a 64 x 64 camera) on the procedural library for GOAL_STEPS steps,
+        as a user runs it, the counters set to 0 before and read after:
+        each update launches K1 2x, K2 2x, K5 2x and K6 1x (the train
+        forward; the backward is the plain recompute). Losses finite; ms per
+        step (sample + update, host clock) and per update on one batch."""
+        import tempfile
+
+        from gaddpg_tpu_torch.cli import train_goal
+
+        log_dir = tempfile.mkdtemp(prefix="goal_")
+        self.reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = train_goal.main(["--steps", str(GOAL_STEPS), "--log_dir", log_dir], lib=lib)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        counts = self.counts()
+        per_update = {k: v / GOAL_STEPS for k, v in counts.items()}
+        if counts != {k: v * GOAL_STEPS for k, v in GOAL_PER_UPDATE.items()}:
+            raise AssertionError(f"goal: launches {counts} over {GOAL_STEPS} steps, expected "
+                                 f"{GOAL_PER_UPDATE} per update")
+        losses = [(m["pm_loss"], m["bce_loss"]) for m in out["metrics"]]
+        if len(losses) != GOAL_STEPS or not np.isfinite(losses).all():
+            raise AssertionError(f"goal: losses {losses}")
+        if not os.path.exists(out["path"]):
+            raise AssertionError(f"goal: {out['path']} not written")
+        log(f"[goal] cli.train_goal.main: {GOAL_STEPS} steps at batch 32 in {secs:.3f} s "
+            f"({secs / GOAL_STEPS * 1e3:.3f} ms per step, sample + update, host clock, the "
+            f"library built; {self.card}); launches per update {per_update}; pm_loss "
+            f"{losses[0][0]:.4f} -> {losses[-1][0]:.4f}, bce_loss {losses[0][1]:.4f} -> "
+            f"{losses[-1][1]:.4f}, all finite; saved {os.path.basename(out['path'])}")
+        self.per_goal_update = per_update
+
+    def goal_card_vs_cpu(self, lib):
+        """The generator at batch GOAL_CHECK_BATCH on the card against the
+        CPU on the same draws (rule (c): at most 3% of a cloud's points
+        without a point of the other's within 1e-4, counts within 1% + 2;
+        grasps within 1e-5 up to the quaternion's sign, labels and objects
+        equal); K1, K2, K5 and K6 against their plain versions at the
+        GoalFeature's shapes on the generator's clouds (zero rows included:
+        FPS ties, repeated slots), K5 and K6 timed; then one GoalFeature
+        update on the card against the CPU from a common state with
+        carried Adam moments, under phase 6's update rule."""
+        from gaddpg_tpu_torch.agents.optim import AdamW
+        from gaddpg_tpu_torch.agents.state import goal_parameters, init_goal_
+        from gaddpg_tpu_torch.data.grasp_dataset import (
+            GraspDatasetGenerator, make_goal_feature_update,
+        )
+        from gaddpg_tpu_torch.models import GoalFeature
+
+        gen_card, gen_cpu = GraspDatasetGenerator(lib), GraspDatasetGenerator(lib, device="cpu")
+        goal_cpu = init_goal_(GoalFeature(), torch.Generator().manual_seed(5))
+        opt_cpu = AdamW(goal_parameters(goal_cpu), GOAL_LR, eps=1e-5, weight_decay=1e-5)
+        update_cpu = make_goal_feature_update(goal_cpu, opt_cpu)
+        with torch.no_grad():
+            draws = gen_cpu.draws(torch.Generator().manual_seed(3), GOAL_CHECK_BATCH)
+            got, want = gen_card.from_draws(draws), gen_cpu.from_draws(draws)
+            for k in ("obj_idx", "label"):
+                if not torch.equal(got[k].cpu(), want[k]):
+                    raise AssertionError(f"goal generator: {k} differs card vs CPU")
+            g, w = got["grasp"].cpu(), want["grasp"]
+            dq = torch.minimum((g[:, :4] - w[:, :4]).abs().amax(1),
+                               (g[:, :4] + w[:, :4]).abs().amax(1)).max().item()
+            dt = (g[:, 4:] - w[:, 4:]).abs().max().item()
+            if dq > 1e-5 or dt > 1e-5:
+                raise AssertionError(f"goal generator: grasps off by {dq:.3e} / {dt:.3e}")
+            valid, valid_c = got["cloud_valid"].cpu(), want["cloud_valid"]
+            n, n_c = valid.sum(1), valid_c.sum(1)
+            if ((n - n_c).abs() > 0.01 * n_c + 2).any():
+                raise AssertionError(f"goal generator: valid counts {n.tolist()} vs "
+                                     f"{n_c.tolist()}")
+            cloud, cloud_c = got["cloud"].cpu(), want["cloud"]
+            miss = max(max(nn_miss_share([cloud[b][valid[b]]], [cloud_c[b][valid_c[b]]]) +
+                           nn_miss_share([cloud_c[b][valid_c[b]]], [cloud[b][valid[b]]]))
+                       for b in range(GOAL_CHECK_BATCH))
+            if miss > CHAOTIC_SHARE:
+                raise AssertionError(f"goal generator: {miss:.3f} of a cloud unmatched")
+            log(f"[goal] GraspDatasetGenerator B={GOAL_CHECK_BATCH} card vs CPU on the same "
+                f"draws: objects and labels equal, grasps within {max(dq, dt):.2e}, valid "
+                f"points {int(n.sum())} vs {int(n_c.sum())} (mean {n.float().mean():.1f} of 512 "
+                f"a cloud, the rest zero rows), largest unmatched share {miss:.4f} ok")
+        clouds = gen_card.from_draws(gen_cpu.draws(torch.Generator().manual_seed(4),
+                                                   GOAL_BATCH))["cloud"]
+        goal_card = copy.deepcopy(goal_cpu).to(self.device)
+        for label, kernel, args in self.goal_level_inputs(goal_card, clouds):
+            if kernel in ("fps", "ball_query"):
+                with torch.no_grad():
+                    a, b2 = self.wrappers[kernel](*args), self.wrappers[kernel](*args)
+                    want_i = self.reference(kernel)(*args)
+                if not (torch.equal(a, want_i) and torch.equal(a, b2)):
+                    raise AssertionError(f"{kernel} {label}: indices differ from the plain "
+                                         "version or between two launches")
+                log(f"[check] {kernel:14s} {label:10s} B={GOAL_BATCH}: indices equal, two "
+                    "launches bit-identical ok")
+            else:
+                self.check_train_call(label, kernel, args, GOAL_BATCH)
+                self.time_train(label, kernel, args)
+        # one update from a common state: a CPU update first (moments to carry)
+        batches = [gen_cpu.sample(torch.Generator().manual_seed(s), GOAL_BATCH) for s in (6, 7)]
+        update_cpu(batches[0])
+        goal_card = copy.deepcopy(goal_cpu).to(self.device)
+        opt_card = AdamW(goal_parameters(goal_card), GOAL_LR, eps=1e-5, weight_decay=1e-5)
+        for dst, src in zip(opt_card.mu + opt_card.nu, opt_cpu.mu + opt_cpu.nu):
+            dst.copy_(src)
+        opt_card.count = opt_cpu.count
+        before = copy.deepcopy(goal_cpu)
+        got = make_goal_feature_update(goal_card, opt_card)(
+            {k: v.to(self.device) for k, v in batches[1].items()})
+        want = update_cpu(batches[1])
+        err = 0.0
+        for k, w in want.items():
+            torch.testing.assert_close(got[k].cpu(), w, rtol=1e-3, atol=1e-3, msg=k)
+            err = max(err, (got[k].cpu() - w).abs().item())
+        serr = 0.0
+        for (name, b_), (_, b_cpu) in zip(goal_card.named_buffers(), goal_cpu.named_buffers()):
+            if b_.is_floating_point():
+                torch.testing.assert_close(b_.cpu(), b_cpu, rtol=1e-3, atol=1e-3, msg=name)
+                serr = max(serr, (b_.cpu() - b_cpu).abs().max().item())
+        lr, threshold, share = GOAL_LR, *_move_bounds(self.cfg)["encoder"][1:]
+        off = total = 0
+        for (name, p0), (_, p), (_, q) in zip(before.named_parameters(),
+                                              goal_card.named_parameters(),
+                                              goal_cpu.named_parameters()):
+            moved, moved_cpu = (p.detach().cpu() - p0).double(), (q.detach() - p0).double()
+            if name.startswith("encoder.") and _bn_fed_bias("encoder", name[len("encoder."):]):
+                if max(moved.abs().max().item(), moved_cpu.abs().max().item()) > 1.0014 * lr:
+                    raise AssertionError(f"goal update: {name} moved past 1.0014 lr")
+                continue
+            off += int(((moved - moved_cpu).abs() > threshold * lr).sum())
+            total += p.numel()
+        if off > share * total:
+            raise AssertionError(f"goal update: {off} of {total} moves differ by more than "
+                                 f"{threshold} lr (bound {share:.0%})")
+        log(f"[goal] GoalFeature update B={GOAL_BATCH} card vs CPU from a common state: losses "
+            f"max_abs_err={err:.3e}, running statistics max_abs_err={serr:.3e}, {off} of {total} "
+            f"moves off by more than {threshold} lr (bound {share:.0%}) ok")
+        # the update and the generator alone: host clock, synchronised
+        update = make_goal_feature_update(goal_card, opt_card)
+        batch = {k: v.to(self.device) for k, v in batches[1].items()}
+        draw = torch.Generator(device=self.device).manual_seed(8)
+        upd_ms = host_ms(lambda: update(batch), reps=5)
+        gen_ms = host_ms(lambda: gen_card.sample(draw, GOAL_BATCH), reps=5)
+        busy, rows, _, n = device_profile(lambda: update(batch), calls=1, count=True,
+                                          host_ops=False,
+                                          ranges=("sa_train.backward_recompute",))
+        log(f"[goal] GoalFeature update B={GOAL_BATCH}: {upd_ms:.3f} ms (median of 5), device "
+            f"busy {busy:.3f} ms (idle {max(0.0, 1 - busy / upd_ms):.3f}, {n:.0f} device "
+            f"activities); GraspDatasetGenerator.sample B={GOAL_BATCH}: {gen_ms:.3f} ms "
+            f"({self.card})")
+        for key, ms in rows[:3]:
+            log(f"[profile]   goal update: {ms:.3f} ms  {key[:100]}")
+
+    def goal_level_inputs(self, goal, cloud):
+        """[(label, kernel, args)] of one GoalFeature train forward on `cloud`
+        (B, 512, 3): K1 and K2 at SA1 (128 centres) and SA2, K5 at both,
+        K6 at SA3, computed with the plain versions."""
+        sampling, sa_train = self.sampling, self.sa_train
+        xyz = feats = cloud.contiguous()
+        calls = []
+        for (name, npoint, radius, nsample), level in zip(GOAL_LEVELS, goal.encoder.sa):
+            calls.append((f"goal {name}", "fps", (xyz, npoint)))
+            new_xyz = sampling.gather_points(xyz, sampling.fps_reference(xyz, npoint))
+            calls.append((f"goal {name}", "ball_query", (new_xyz, xyz, radius, nsample)))
+            idx = sampling.ball_query_reference(new_xyz, xyz, radius, nsample)
+            full = torch.cat([xyz, feats], dim=-1)
+            cpad = torch.nn.functional.pad(new_xyz, (0, full.shape[-1] - 3))
+            dense = train_dense(level)
+            calls.append((f"goal {name}", "sa_train", (idx, full, cpad, dense)))
+            with torch.no_grad():
+                xyz, feats = new_xyz, sa_train.sa_train_reference(idx, full, cpad, dense)[0]
+        calls.append(("goal SA3", "groupall_train",
+                      (torch.cat([xyz, feats], dim=-1), train_dense(goal.encoder.sa[2]))))
+        return calls
+
     def kernel_line(self, totals):
         rows = []
         for kernel in self.wrappers:
@@ -3348,6 +3628,7 @@ class Smoke:
                 "launches": self.launches[kernel],
                 "launches_per_train_iter": self.per_iter[kernel],
                 "launches_per_clutter_iter": self.per_clutter_iter[kernel],
+                "launches_per_goal_update": self.per_goal_update[kernel],
                 "max_abs_err": self.errors[kernel],
                 "ms": t["ms"],
                 "plain_ms": t["plain_ms"],
@@ -3437,6 +3718,73 @@ def clutter_phase(smoke, gen, mark=None):
         mark("clutter card vs CPU")
 
 
+def _build_library(index, path, where):
+    """A child process's work: `index`'s library built on the CPU, saved
+    to `path` (the JAX package's .npz layout), its seconds beside it."""
+    from gaddpg_tpu_torch.data.mesh_native import native_available
+    from gaddpg_tpu_torch.envs.assets import library_from_index, save_library
+
+    t0 = time.perf_counter()
+    lib = library_from_index(index)
+    secs = time.perf_counter() - t0
+    save_library(lib, path)
+    with open(path + ".json", "w") as f:
+        json.dump({"seconds": secs, "native": native_available(), "where": where}, f)
+
+
+class LibraryBuild:
+    """`library_from_index(index)` in a child process on the host's CPU:
+    the grasp rig is host work that takes about a minute for 4 objects, so
+    a full run starts it before the card's phases and phase 13 collects
+    it. The child is a daemon, and `stop` ends it."""
+
+    def __init__(self, index, where):
+        import multiprocessing
+        import tempfile
+
+        self.path = os.path.join(tempfile.mkdtemp(prefix="proc_lib_"), "lib.npz")
+        ctx = multiprocessing.get_context("spawn")
+        self.proc = ctx.Process(target=_build_library, args=(index, self.path, where),
+                                daemon=True)
+        self.proc.start()
+
+    def result(self):
+        from gaddpg_tpu_torch.envs.assets import load_library
+
+        self.proc.join(LIBRARY_BUILD_TIMEOUT)
+        if self.proc.is_alive() or self.proc.exitcode != 0:
+            self.stop()
+            raise AssertionError(f"proc: the library build ended with {self.proc.exitcode}")
+        with open(self.path + ".json") as f:
+            return load_library(self.path), json.load(f)
+
+    def stop(self):
+        if self.proc.is_alive():
+            self.proc.terminate()
+        self.proc.join()
+
+
+def proc_phase(smoke, gen, build, mark=None):
+    """Phase 13: the procedural library built on the CPU (`build`), one
+    TrainConfig() iteration on it, K7 and K1-K4 on its scenes and clouds,
+    then cli.train_goal and the GoalFeature checks."""
+    t0 = time.perf_counter()
+    lib = smoke.proc_library(build)
+    smoke.per_proc_iter = smoke.loop_path(lib=lib, tag="proc", profile=False)
+    tr, first = smoke.loop_run
+    smoke.loop_run = None
+    with torch.no_grad():
+        smoke.proc_kernels(tr, first, gen)
+    del tr, first
+    if mark:
+        mark("proc loop")
+    smoke.goal_train(lib)
+    smoke.goal_card_vs_cpu(lib)
+    if mark:
+        mark("goal")
+    log(f"[proc] phase 13 took {time.perf_counter() - t0:.1f} s ({smoke.card})")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--scale2-seeds", type=seed_range, metavar="A-B",
@@ -3459,6 +3807,9 @@ def main(argv=None) -> int:
     ap.add_argument("--clutter", action="store_true",
                     help="run phase 12 (the td3_clutter train iteration at full width, the "
                          "B=8 clutter path card vs CPU, physics/multi.py against K7) alone")
+    ap.add_argument("--proc", action="store_true",
+                    help="run phase 13 (the proc_shapenet:4 library, one TrainConfig() "
+                         "iteration on it, cli.train_goal and the GoalFeature checks) alone")
     ap.add_argument("--planner", action="store_true",
                     help="run the CHOMP planner alone: phase 8's env path with EnvParams(), "
                          "plan_to_goal card vs CPU, the reset, step and retract times and "
@@ -3477,6 +3828,7 @@ def main(argv=None) -> int:
     except ImportError as e:
         print(f"chip_smoke: the gaddpg_tpu_torch package is missing ({e})", file=sys.stderr)
         return 1
+    lib_build = None
     try:
         t_start = time.perf_counter()
         log(f"[env] python {sys.version.split()[0]}, torch {torch.__version__}, "
@@ -3507,6 +3859,12 @@ def main(argv=None) -> int:
             print(card, flush=True)
             log(f"[time] whole run {time.perf_counter() - t_start:.1f} s")
             return 0
+        if args.proc:
+            lib_build = LibraryBuild(PROC_INDEX, "alone")
+            proc_phase(Smoke(), torch.Generator(device="cuda").manual_seed(13), lib_build)
+            print(card, flush=True)
+            log(f"[time] whole run {time.perf_counter() - t_start:.1f} s")
+            return 0
         if args.planner:
             with torch.no_grad():
                 smoke = Smoke()
@@ -3531,6 +3889,8 @@ def main(argv=None) -> int:
             return 0
         torch.manual_seed(0)
         gen = torch.Generator(device="cuda").manual_seed(0)
+        # phase 13's library, built on the host's CPU while the card's phases run
+        lib_build = LibraryBuild(PROC_INDEX, "beside phases 2-12")
         with torch.no_grad():  # serving: no autograd graph anywhere
             smoke = Smoke()
             smoke.check_kernels(gen)
@@ -3575,15 +3935,20 @@ def main(argv=None) -> int:
         smoke.scale2_card_vs_cpu()
         mark("scale 2")
         smoke.per_iter = smoke.loop_path()
+        smoke.loop_run = None
         mark("loop")
         smoke.loop_card_vs_cpu()
         smoke.loop_card_vs_cpu(planner=True)
         mark("loop card vs CPU")
         clutter_phase(smoke, gen, mark)
+        proc_phase(smoke, gen, lib_build, mark)
         line = smoke.kernel_line(totals)
     except Exception:  # report which phase failed, then fail the run
         traceback.print_exc()
         return 1
+    finally:
+        if lib_build is not None:
+            lib_build.stop()
     log(f"[time] whole run {time.perf_counter() - t_start:.1f} s")
     print(card, flush=True)
     print(json.dumps(line), flush=True)

@@ -17,7 +17,12 @@ What is ported so far:
 - the online train loop: the replay ring on the device
   (`replay.create_buffer`, `add_episodes`, `sample`, the reference's
   `.npz` format), the batched rollout (`train.RolloutWorker`) and
-  `train.Trainer` (collect -> insert -> sample -> update).
+  `train.Trainer` (collect -> insert -> sample -> update);
+- the object pipeline (`data/`: procedural meshes, OBJ and grasp files,
+  the mesh-to-asset pipeline on the native host library, grasp labels
+  from the contact physics on the CPU; `envs.assets.library_from_index`
+  for every object index) and the grasp-pose trainer (`GoalFeature`,
+  `data.grasp_dataset`, `cli.train_goal`).
 Their seven kernels (furthest point sampling, ball query, the two eval
 set-abstraction kernels, the two train-mode stats kernels and the
 physics contact scan) are hand-written CUDA C++ for sm_90a under

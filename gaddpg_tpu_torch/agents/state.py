@@ -12,7 +12,11 @@ optimizer states. The port's holds modules instead:
   (reference: core/ddpg.py:69-88);
 - `opt`: the four optimizers ("policy", "critic", "encoder",
   "value_encoder"), `agents.optim.AdamW`;
-- `update_step`: the number of updates taken.
+- `update_step`: the number of updates taken;
+- `goal`: the `GoalFeature` grasp-pose encoder (parameters and BatchNorm
+  running statistics) and `goal_opt`, its AdamW at the feature learning
+  rate, which the DDPG and BC updates leave alone
+  (`data.grasp_dataset.make_goal_feature_update` steps them).
 
 `create_agent_state` initialises them with the JAX package's
 initialisers; `from_flax` loads a JAX state's trees, optimizer states
@@ -29,7 +33,7 @@ from torch import nn
 
 from gaddpg_tpu_torch.agents.config import AgentConfig
 from gaddpg_tpu_torch.agents.optim import AdamW
-from gaddpg_tpu_torch.models import GaussianPolicy, PointNetFeature, QNetwork
+from gaddpg_tpu_torch.models import GaussianPolicy, GoalFeature, PointNetFeature, QNetwork
 from gaddpg_tpu_torch.utils.precision import resolve_device
 
 OPTIMIZERS = ("policy", "critic", "encoder", "value_encoder")
@@ -44,6 +48,8 @@ class AgentState:
     critic_target: QNetwork = None
     opt: dict = None
     update_step: int = 0
+    goal: GoalFeature = None
+    goal_opt: AdamW = None
 
     @property
     def device(self) -> torch.device:
@@ -55,17 +61,23 @@ class AgentState:
         out = AgentState(*(None if m is None else copy.deepcopy(m).to(device)
                            for m in (self.feat, self.policy, self.critic,
                                      self.policy_target, self.critic_target)),
-                         update_step=self.update_step)
+                         update_step=self.update_step,
+                         goal=None if self.goal is None else copy.deepcopy(self.goal).to(device))
         if self.opt is not None:
-            out.opt = {}
-            for name, params in _optimizer_params(out).items():
-                src = self.opt[name]
-                opt = copy.copy(src)
-                opt.params = params
-                opt.mu = [t.to(device, copy=True) for t in src.mu]
-                opt.nu = [t.to(device, copy=True) for t in src.nu]
-                out.opt[name] = opt
+            out.opt = {name: _moved_optimizer(self.opt[name], params, device)
+                       for name, params in _optimizer_params(out).items()}
+        if self.goal_opt is not None:
+            out.goal_opt = _moved_optimizer(self.goal_opt, goal_parameters(out.goal), device)
         return out
+
+
+def _moved_optimizer(src: AdamW, params, device) -> AdamW:
+    """A copy of optimizer `src` stepping `params`, its moments on `device`."""
+    opt = copy.copy(src)
+    opt.params = params
+    opt.mu = [t.to(device, copy=True) for t in src.mu]
+    opt.nu = [t.to(device, copy=True) for t in src.nu]
+    return opt
 
 
 COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -157,6 +169,29 @@ def _critic_pairs(critic):
     return [p for n in names for p in _dense_pairs(getattr(critic, n), (n,))]
 
 
+def _prefixed(pairs, prefix):
+    return [(t, (prefix, *path), tr) for t, path, tr in pairs]
+
+
+# GoalFeature's Flax tree: PointNetEncoder_0 and the heads Dense_0..2 (q, t, conf)
+GOAL_ENCODER = "PointNetEncoder_0"
+
+
+def _goal_pairs(goal: GoalFeature):
+    return (_prefixed(_encoder_pairs(goal.encoder), GOAL_ENCODER)
+            + [p for j, d in enumerate((goal.q, goal.t, goal.conf))
+               for p in _dense_pairs(d, (f"Dense_{j}",))])
+
+
+def _goal_stat_pairs(goal: GoalFeature):
+    return _prefixed(_encoder_stat_pairs(goal.encoder), GOAL_ENCODER)
+
+
+def goal_parameters(goal: GoalFeature):
+    """GoalFeature's parameters in the order its optimizer steps them."""
+    return [t for t, _, _ in _goal_pairs(goal)]
+
+
 def _pairs(state: AgentState):
     """Optimizer name -> (tensor, Flax path, transposed) of what it steps."""
     return {
@@ -191,6 +226,13 @@ def make_optimizers(cfg: AgentConfig, state: AgentState) -> dict:
     }
 
 
+def make_goal_optimizer(cfg: AgentConfig, goal: GoalFeature) -> AdamW:
+    """GoalFeature's Adam at the feature learning rate and schedule, as the
+    JAX package's "goal" transform (gaddpg_tpu/agents/state.py:99)."""
+    return AdamW(goal_parameters(goal), cfg.feature_lr, cfg.feature_milestones,
+                 cfg.feature_lr_gamma, eps=cfg.adam_eps, weight_decay=cfg.weight_decay)
+
+
 def _truncated_normal_(w: torch.Tensor, scale: float, generator: torch.Generator):
     """Flax `variance_scaling(scale, "fan_in", "truncated_normal")` on a
     torch (out, in) weight: a normal truncated at +-2 std, rescaled so
@@ -213,7 +255,22 @@ def _init_heads_(module: nn.Module, generator: torch.Generator):
             d.bias.zero_()
 
 
-def _assemble(cfg, feat, policy, critic, device, update_step=0,
+def init_goal_(goal: GoalFeature, generator: torch.Generator):
+    """GoalFeature initialised as the JAX package's: kaiming-normal SA
+    Denses, lecun-normal FC and head Denses, zero biases, BatchNorm scale 1
+    / bias 0 / mean 0 / var 1."""
+    with torch.no_grad():
+        for sa in goal.encoder.sa:
+            for d in sa.dense:
+                _truncated_normal_(d.weight, 2.0, generator)
+                d.bias.zero_()
+        for d in (*goal.encoder.fc, goal.q, goal.t, goal.conf):
+            _truncated_normal_(d.weight, 1.0, generator)
+            d.bias.zero_()
+    return goal
+
+
+def _assemble(cfg, feat, policy, critic, goal, device, update_step=0,
               policy_target=None, critic_target=None) -> AgentState:
     """AgentState on `device` with targets (copies of the heads unless
     given) and fresh optimizers."""
@@ -221,11 +278,13 @@ def _assemble(cfg, feat, policy, critic, device, update_step=0,
         feat.eval(), policy.eval(), critic.eval(),
         (policy_target if policy_target is not None else copy.deepcopy(policy)).eval(),
         (critic_target if critic_target is not None else copy.deepcopy(critic)).eval(),
-        update_step=update_step,
+        update_step=update_step, goal=goal.eval(),
     )
-    for m in (state.feat, state.policy, state.critic, state.policy_target, state.critic_target):
+    for m in (state.feat, state.policy, state.critic, state.policy_target, state.critic_target,
+              state.goal):
         m.to(device)
     state.opt = make_optimizers(cfg, state)
+    state.goal_opt = make_goal_optimizer(cfg, state.goal)
     return state
 
 
@@ -234,7 +293,8 @@ def create_agent_state(cfg: AgentConfig = AgentConfig(), npoints: int = 1030,
     """Fresh agent state on `device`, initialised as the JAX package does:
     kaiming-normal SA Denses, lecun-normal FC Denses, xavier-uniform head
     Denses (policy and critic), zero biases, BatchNorm scale 1 / bias 0 /
-    mean 0 / var 1; targets equal to the heads; optimizers at count 0.
+    mean 0 / var 1; targets equal to the heads; GoalFeature as `init_goal_`
+    (its draws after the others'); optimizers at count 0.
 
     `npoints` (the point-state width, 6 anchors + cloud) is checked only:
     the modules do not depend on it. `generator` is a CPU generator
@@ -259,7 +319,8 @@ def create_agent_state(cfg: AgentConfig = AgentConfig(), npoints: int = 1030,
             _xavier_uniform_(d.weight, generator)
             d.bias.zero_()
         _init_heads_(critic, generator)
-    return _assemble(cfg, feat, policy, critic, device)
+    goal = init_goal_(GoalFeature(), generator)
+    return _assemble(cfg, feat, policy, critic, goal, device)
 
 
 def _leaf(tree, path):
@@ -282,10 +343,32 @@ def _load(pairs, tree):
         _copy_(t, _leaf(tree, path), transpose)
 
 
+def goal_from_flax(params, stats, device="cuda") -> GoalFeature:
+    """A GoalFeature (eval mode, on `device`) from a JAX GoalFeature's
+    `params` and `batch_stats` trees as nested dicts of arrays:
+    `PointNetEncoder_0/...` (the encoder's names, see `from_flax`) and the
+    heads `Dense_0` (q), `Dense_1` (t), `Dense_2` (confidence)."""
+    goal = GoalFeature()
+    with torch.no_grad():
+        _load(_goal_pairs(goal), params)
+        _load(_goal_stat_pairs(goal), stats)
+    return goal.eval().to(resolve_device(device))
+
+
+def _load_moments(opt: AdamW, pairs, src):
+    """Adam moments and count of an optax state {"mu", "nu", "count"}."""
+    with torch.no_grad():
+        for moments, key in ((opt.mu, "mu"), (opt.nu, "nu")):
+            for t, (_, path, transpose) in zip(moments, pairs):
+                _copy_(t, _leaf(src[key], path), transpose)
+    opt.count = int(src["count"])
+
+
 def from_flax(feat_params, feat_stats, policy_params, cfg: AgentConfig = AgentConfig(),
               device="cuda", *, critic_params=None, policy_target=None, critic_target=None,
               policy_opt=None, critic_opt=None, encoder_opt=None, value_encoder_opt=None,
-              update_step: int = 0) -> AgentState:
+              update_step: int = 0, goal_params=None, goal_stats=None,
+              goal_opt=None) -> AgentState:
     """AgentState from a JAX state's trees, as nested dicts of arrays
     (e.g. `jax.tree_util.tree_map(np.asarray, state.feat_params)`).
 
@@ -301,8 +384,11 @@ def from_flax(feat_params, feat_stats, policy_params, cfg: AgentConfig = AgentCo
     {"mu": tree, "nu": tree, "count": int} with trees shaped like the
     parameters it steps (`policy_opt`: policy_params, `critic_opt`:
     critic_params, `encoder_opt` / `value_encoder_opt`:
-    feat_params["encoder"] / ["value_encoder"]; default: fresh), and
-    `update_step`."""
+    feat_params["encoder"] / ["value_encoder"]; default: fresh),
+    `update_step`, and the GoalFeature's `goal_params` and `goal_stats`
+    (`goal_from_flax`'s trees; default: initialised as
+    `create_agent_state` does with seed 0) with its optimizer `goal_opt`
+    (default: fresh)."""
     device = resolve_device(device)
     feat, policy, critic = make_modules(cfg)
     p_target, c_target = copy.deepcopy(policy), copy.deepcopy(critic)
@@ -322,17 +408,17 @@ def from_flax(feat_params, feat_stats, policy_params, cfg: AgentConfig = AgentCo
             c_target.load_state_dict(critic.state_dict())
         else:
             _load(_critic_pairs(c_target), critic_target)
-    state = _assemble(cfg, feat, policy, critic, device, int(update_step), p_target, c_target)
+    if goal_params is None:
+        goal = init_goal_(GoalFeature(), torch.Generator().manual_seed(0))
+    else:
+        goal = goal_from_flax(goal_params, goal_stats, device="cpu")
+    state = _assemble(cfg, feat, policy, critic, goal, device, int(update_step), p_target,
+                      c_target)
     opts = {"policy": policy_opt, "critic": critic_opt, "encoder": encoder_opt,
             "value_encoder": value_encoder_opt}
     for name, pairs in _pairs(state).items():
-        src = opts[name]
-        if src is None:
-            continue
-        opt = state.opt[name]
-        for moments, key in ((opt.mu, "mu"), (opt.nu, "nu")):
-            with torch.no_grad():
-                for t, (_, path, transpose) in zip(moments, pairs):
-                    _copy_(t, _leaf(src[key], path), transpose)
-        opt.count = int(src["count"])
+        if opts[name] is not None:
+            _load_moments(state.opt[name], pairs, opts[name])
+    if goal_opt is not None:
+        _load_moments(state.goal_opt, _goal_pairs(state.goal), goal_opt)
     return state

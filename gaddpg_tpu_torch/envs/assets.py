@@ -1,13 +1,14 @@
-"""Procedural object library: sphere sets, surface points, grasp
-databases (counterpart of gaddpg_tpu/envs/assets.py, the built-in proxy
-libraries).
+"""Object library: sphere sets, surface points, grasp databases
+(counterpart of gaddpg_tpu/envs/assets.py).
 
 The reference's YCB / ShapeNet meshes and ACRONYM grasps are not
 vendored, so objects are parameterised proxies with the published names
 and dimensions: boxes, solid cylinders and hollow cylinders. Contact
 geometry is a padded sphere set, render geometry surface samples, and
 the grasp database antipodal hand poses in the object frame
-(reference: env/panda_scene.py:523-573, 1252-1255). The builders are
+(reference: env/panda_scene.py:523-573, 1252-1255). Mesh indexes,
+procedural libraries and seed indexes go through the mesh pipeline of
+`data/` (`library_from_index`). The builders are
 seeded numpy (`RandomState(0)` / `(1)`), the JAX package's code, so both
 packages build the same library; `ObjectLibrary` holds float32 tensors
 as the JAX package holds float32 arrays.
@@ -18,6 +19,8 @@ origin along +z.
 """
 
 import dataclasses
+import json
+import os
 from typing import List, Sequence, Tuple
 
 import numpy as np
@@ -412,21 +415,173 @@ def build_library(specs: Sequence[AssetSpec]) -> ObjectLibrary:
     )
 
 
+def empty_library() -> ObjectLibrary:
+    """An ObjectLibrary with no objects (the start of `extend_library`)."""
+    z = lambda *shape: torch.zeros(shape)  # noqa: E731
+    return ObjectLibrary(
+        names=[], spheres=z(0, NS, 4), coarse_spheres=z(0, NC, 4),
+        surface_points=z(0, NP, 3), extents=z(0, 3), mass=z(0), inertia=z(0, 3),
+        grasps=z(0, NG, 4, 4), grasp_valid=torch.zeros((0, NG), dtype=torch.bool),
+        rest_height=z(0),
+    )
+
+
+def verify_library_grasps(lib: ObjectLibrary, params=None) -> ObjectLibrary:
+    """Physics-verify every grasp in the library and mask out failures.
+
+    Runs the close-and-hold rig (data/mesh_import.verify_grasps_physics,
+    on the CPU) over each object's padded grasp set -- the library-wide
+    analogue of ACRONYM's simulation-verified grasp labels (reference:
+    misc/grasp_data_reader.py:338-357). Objects where no grasp survives
+    keep their analytic set (better a shaky grasp DB than an
+    ungraspable object). `params`: the PhysicsParams the env will
+    simulate with (e.g. `EnvParams.physics`); default PhysicsParams()."""
+    from gaddpg_tpu_torch.data.mesh_import import verify_grasps_physics
+
+    if lib.num_objects == 0:
+        return lib
+    gv = lib.grasp_valid.cpu().numpy().copy()
+    sph, grs = lib.spheres.cpu().numpy(), lib.grasps.cpu().numpy()
+    masses, inert = lib.mass.cpu().numpy(), lib.inertia.cpu().numpy()
+    held = np.zeros_like(gv)
+    for o in range(lib.num_objects):
+        held[o] = verify_grasps_physics(sph[o], float(masses[o]), inert[o], grs[o],
+                                        params=params)
+    new_gv = gv & held
+    keep = new_gv.any(axis=1)
+    new_gv[~keep] = gv[~keep]
+    return dataclasses.replace(lib, grasp_valid=torch.as_tensor(new_gv).to(lib.grasp_valid.device))
+
+
+def index_format(path: str):
+    """The `format` key of an index JSON (a dict), or None for a mesh index
+    (a dict of splits or a list of entries without one)."""
+    with open(path) as f:
+        idx = json.load(f)
+    return idx.get("format") if isinstance(idx, dict) else None
+
+
 def library_from_index(index: str = "ycb", split: str = "train") -> ObjectLibrary:
-    """The built-in proxy library named after a reference object index:
-    "ycb" (experiments/object_index/ycb_large.json; the test split drops
-    the pitcher) or "extra_shape". Mesh and procedural indexes are not
-    ported."""
+    """The library named after a reference object index:
+
+    - "ycb" (experiments/object_index/ycb_large.json proxies; the test
+      split drops the pitcher) or "extra_shape": the built-in proxies;
+    - "proc_shapenet_1216": the checked-in seed index
+      experiments/object_index/proc_shapenet_1216.json (1216 train / 304
+      test seeds and their grasp manifest), built through the mesh
+      pipeline and cached (`data.procgen.library_from_seed_index`);
+    - "proc_shapenet" or "proc_shapenet:N": N procedural objects (default
+      64) from seed 0 (train) or 100000 (test), built on the spot;
+    - a path to a JSON file: a seed index if its `format` key says
+      "proc_seed_index", else a mesh index (the filter_shapenet.json
+      pattern, reference: experiments/object_index/filter_shapenet.json
+      + env/panda_scene.py:523-573): {"train": [...], "test": [...]},
+      each entry {"name", "obj" (path), optional "grasps" (h5/json path),
+      optional "scale"/"mass"} (`library_from_mesh_index`).
+    """
     if index == "ycb":
         specs = ycb_proxy_specs()
         if split == "test":
             specs = [s for s in specs if s.name != "019_pitcher_base"]
     elif index == "extra_shape":
         specs = extra_shape_specs()
+    elif index == "proc_shapenet_1216":
+        from gaddpg_tpu_torch.data.procgen import library_from_seed_index
+
+        here = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+        return library_from_seed_index(
+            os.path.join(here, "experiments", "object_index", "proc_shapenet_1216.json"), split)
+    elif index == "proc_shapenet" or index.startswith("proc_shapenet:"):
+        from gaddpg_tpu_torch.data.procgen import build_proc_library
+
+        n = int(index.split(":")[1]) if ":" in index else 64
+        return build_proc_library(n, seed0=0 if split == "train" else 100000)
+    elif index.endswith(".json") and os.path.exists(index):
+        if index_format(index) == "proc_seed_index":
+            from gaddpg_tpu_torch.data.procgen import library_from_seed_index
+
+            return library_from_seed_index(index, split)
+        return library_from_mesh_index(index, split)
     else:
-        raise NotImplementedError(f"object index {index!r} is not ported; "
-                                  "use 'ycb' or 'extra_shape'")
+        raise ValueError(f"unknown object index {index!r}")
     return build_library(specs)
+
+
+def library_cache_path(path: str, split: str) -> str:
+    """Where the built library of index `path` is cached: beside the
+    JSON, keyed on the split and the asset pipeline's PACKING_VERSION,
+    under a name of the port's own (the JAX package writes
+    `<index>.<split>.v<N>.libcache.npz`, with its own grasp labels)."""
+    from gaddpg_tpu_torch.data.mesh_import import PACKING_VERSION
+
+    return f"{path}.{split}.v{PACKING_VERSION}.torch.libcache.npz"
+
+
+def cached_library(path: str, split: str):
+    """The cached library of index `path`, or None if there is none newer
+    than the index."""
+    cache = library_cache_path(path, split)
+    if os.path.exists(cache) and os.path.getmtime(cache) >= os.path.getmtime(path):
+        return load_library(cache)
+    return None
+
+
+def save_library(lib: ObjectLibrary, path: str) -> None:
+    """Serialize a built ObjectLibrary (all padded arrays + names) in the
+    JAX package's `.npz` layout."""
+    np.savez_compressed(
+        path, names=np.asarray(lib.names, dtype=object),
+        **{k: getattr(lib, k).cpu().numpy() for k in LIBRARY_FIELDS},
+    )
+
+
+def load_library(path: str) -> ObjectLibrary:
+    """An ObjectLibrary (CPU tensors) from a `save_library` file, the
+    port's or the JAX package's."""
+    data = np.load(path, allow_pickle=True)
+    return library_from_arrays([str(n) for n in data["names"]],
+                               **{k: data[k] for k in LIBRARY_FIELDS})
+
+
+def library_from_mesh_index(path: str, split: str = "train") -> ObjectLibrary:
+    """Mesh-index JSON -> ObjectLibrary via the mesh asset pipeline.
+
+    The pipeline (voxel fill, sphere pack, antipodal candidates,
+    close-and-hold physics verification) costs seconds per object, and
+    every train/eval process reloads the same index, so the built library
+    is cached beside the JSON (`library_cache_path`) and rebuilt when the
+    JSON is newer (reference: misc/grasp_data_reader.py caches + env
+    asset reuse). Grasp files carry their own labels and get only the
+    geometric pad-squeeze check."""
+    from gaddpg_tpu_torch.data.grasp_files import read_grasp_file
+    from gaddpg_tpu_torch.data.mesh_import import asset_from_mesh, extend_library, load_obj
+
+    lib = cached_library(path, split)
+    if lib is not None:
+        return lib
+    with open(path) as f:
+        idx = json.load(f)
+    entries = idx[split] if isinstance(idx, dict) else idx
+    root = os.path.dirname(os.path.abspath(path))
+
+    def resolve(p):
+        return p if os.path.isabs(p) else os.path.join(root, p)
+
+    built, names = [], []
+    for e in entries:
+        tris = load_obj(resolve(e["obj"]), scale=float(e.get("scale", 1.0)))
+        grasps = None
+        if e.get("grasps"):
+            g = read_grasp_file(resolve(e["grasps"]))
+            grasps = g["transforms"][g["positive"]]
+        built.append(asset_from_mesh(tris, mass=e.get("mass"), grasps=grasps))
+        names.append(e["name"])
+    lib = extend_library(empty_library(), built, names)
+    try:
+        save_library(lib, library_cache_path(path, split))
+    except OSError:
+        pass  # read-only index location: rebuild next time
+    return lib
 
 
 def box_asset(w, d, h, mass=0.2, name="box") -> ObjectLibrary:

@@ -219,3 +219,33 @@ class PointNetFeature(nn.Module):
                 pc = torch.cat([pc, tiled], dim=1)
             return self.value_encoder(self._prep(pc, self.value_in), train)
         return self.encoder(self._prep(point_state, self.policy_in), train)
+
+
+class GoalFeature(nn.Module):
+    """Grasp-pose prediction encoder (counterpart of GoalFeature in
+    gaddpg_tpu/models/pointnet.py; reference: core/networks.py:150-178).
+
+    An object cloud (B, N, 3) goes through a PointNetEncoder with 3 input
+    channels (SA1 sees 6 columns: the centred xyz and the xyz) and
+    `nclusters` SA1 centres; three Dense heads give a quaternion, a
+    translation and a confidence logit. Returns the normalised [q, t]
+    (B, 7) and the sigmoid confidence (B,); with train=True also the
+    encoder's batch statistics, as PointNetEncoder returns them.
+
+    `encoder` is the Flax module's PointNetEncoder_0; `q`, `t`, `conf` its
+    Dense_0, Dense_1, Dense_2."""
+
+    def __init__(self, nclusters: int = 128, radius: float = 0.02, scale: int = 1):
+        super().__init__()
+        self.encoder = PointNetEncoder(3, nclusters, radius, scale)
+        width = 512 * scale
+        self.q, self.t, self.conf = nn.Linear(width, 4), nn.Linear(width, 3), nn.Linear(width, 1)
+
+    def forward(self, pc, train: bool = False):
+        out = self.encoder(pc, train)
+        z, stats = out if train else (out, None)
+        q = self.q(z)
+        q = q / torch.clamp(torch.linalg.vector_norm(q, dim=-1, keepdim=True), min=1e-8)
+        qt = torch.cat([q, self.t(z)], dim=-1)
+        conf = torch.sigmoid(self.conf(z)[..., 0])
+        return (qt, conf, stats) if train else (qt, conf)

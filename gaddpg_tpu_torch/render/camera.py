@@ -41,15 +41,18 @@ def _apply(T, pts):
     return pts @ T[:, :3, :3].transpose(-1, -2) + T[:, None, :3, 3]
 
 
-def render_depth_points(cam: CameraParams, cam_pose_inv, points_world):
+def render_depth_points(cam: CameraParams, cam_pose_inv, points_world, valid=None):
     """Z-buffer world points into depth images (B, H, W), 0 = no hit.
 
-    cam_pose_inv (B, 4, 4) world -> camera; points_world (B, N, 3)."""
+    cam_pose_inv (B, 4, 4) world -> camera; points_world (B, N, 3);
+    valid (B, N) bool, optional: only those points are drawn."""
     h, w = cam.height, cam.width
     b = points_world.shape[0]
     p_cam = _apply(cam_pose_inv, points_world)
     z = p_cam[..., 2]
     ok = (z > cam.near) & (z < cam.far)
+    if valid is not None:
+        ok = ok & valid
     f = cam.focal
     u = torch.round(f * p_cam[..., 0] / z + w / 2.0 - 0.5).to(torch.int64)
     v = torch.round(f * p_cam[..., 1] / z + h / 2.0 - 0.5).to(torch.int64)
@@ -124,14 +127,26 @@ def spheres_zdepth(cam: CameraParams, cam_pose, centers, radii):
     return t.reshape(-1, cam.height, cam.width)
 
 
-def visible_target_depth(cam: CameraParams, cam_pose_inv, points_world, occ_depth=None):
+def visible_target_depth(cam: CameraParams, cam_pose_inv, points_world, valid=None,
+                         occ_depth=None):
     """Target depth images with occluded pixels zeroed: a target pixel
     survives unless an occluder is nearer by more than OCCLUSION_EPS
     (reference: core/utils.py:350,454-460)."""
-    depth = render_depth_points(cam, cam_pose_inv, points_world)
+    depth = render_depth_points(cam, cam_pose_inv, points_world, valid)
     if occ_depth is not None:
         depth = torch.where(depth <= occ_depth + OCCLUSION_EPS, depth, 0.0)
     return depth
+
+
+def visible_points(cam: CameraParams, cam_pose_inv, points_world, valid=None,
+                   max_points: int = 512, occ_depth=None):
+    """Backprojected visible-surface samples in the camera frame: the
+    occlusion-culled target depth images, their hit pixels' centres
+    backprojected (reference: core/utils.py:454-472, without the OpenGL
+    y-flip round trip). Returns (pts (B, max_points, 3), valid mask
+    (B, max_points))."""
+    depth = visible_target_depth(cam, cam_pose_inv, points_world, valid, occ_depth)
+    return depth_to_points(cam, depth, max_points)
 
 
 def depth_to_points(cam: CameraParams, depth, max_points: int = 512):

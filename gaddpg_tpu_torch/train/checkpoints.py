@@ -3,8 +3,9 @@ gaddpg_tpu/train/checkpoints.py, in the port's own format).
 
 One `torch.save` file per snapshot, `agent_{surfix}.pt` (`agent_latest`,
 `agent_epoch_N`), holding every module's parameters and BatchNorm
-statistics (the encoders, the heads and their targets), each optimizer's
-Adam moments and count, and the update step. The JAX package's
+statistics (the encoders, the heads and their targets, the GoalFeature),
+each optimizer's Adam moments and count (the GoalFeature's too), and the
+update step. The JAX package's
 `.msgpack` checkpoints are not read here; `agents.state.from_flax`
 carries a JAX state's trees across.
 """
@@ -16,7 +17,7 @@ import torch
 
 from gaddpg_tpu_torch.agents.state import AgentState
 
-MODULES = ("feat", "policy", "critic", "policy_target", "critic_target")
+MODULES = ("feat", "policy", "critic", "policy_target", "critic_target", "goal")
 
 
 def checkpoint_path(output_dir: str, surfix: str = "latest") -> str:
@@ -29,7 +30,7 @@ def save_agent(state: AgentState, output_dir: str, surfix: str = "latest") -> st
     torch.save({
         "modules": {m: getattr(state, m).state_dict() for m in MODULES},
         "opt": {name: {"mu": opt.mu, "nu": opt.nu, "count": opt.count}
-                for name, opt in state.opt.items()},
+                for name, opt in {**state.opt, "goal": state.goal_opt}.items()},
         "update_step": int(state.update_step),
     }, path)
     return path
@@ -46,9 +47,10 @@ def load_agent(template: AgentState, output_dir: str,
     state = template.to(template.device)
     for m in MODULES:
         getattr(state, m).load_state_dict(data["modules"][m])
+    opts = {**state.opt, "goal": state.goal_opt}
     with torch.no_grad():
         for name, saved in data["opt"].items():
-            opt = state.opt[name]
+            opt = opts[name]
             for dst, src in zip(opt.mu + opt.nu, saved["mu"] + saved["nu"], strict=True):
                 dst.copy_(src)
             opt.count = int(saved["count"])

@@ -84,8 +84,10 @@ def test_unported_options_and_device():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             PandaGraspEnv(EnvParams(use_planner=False), lib)
-    with pytest.raises(NotImplementedError):
-        assets.library_from_index("proc_shapenet_1216")
+    # the mesh and procedural indexes are ported (tests/test_torch_mesh_index.py,
+    # test_torch_procgen.py); a name that is none of them raises
+    with pytest.raises(ValueError, match="unknown object index"):
+        assets.library_from_index("proc_shapenet_9999")
 
 
 @pytest.fixture(scope="module")

@@ -286,3 +286,82 @@ def test_tile_widths(dims, ok):
     else:
         with pytest.raises(ValueError, match="sa_gather_mlp"):
             sa.check_tile_widths("sa_gather_mlp", ws)
+
+
+# GoalFeature's trunk (models/pointnet.py GoalFeature): clouds of 512
+# points, xyz only, so SA1 takes 6 columns (the centred xyz and the xyz)
+# at 128 centres of 64 slots; the generator's clouds end in all-zero rows
+GOAL_POINTS, GOAL_CENTRES, GOAL_NSAMPLE = 512, 128, 64
+GOAL_SA1 = (6, (64, 64, 128))
+
+
+def _goal_cloud(rng, b, hits):
+    """(B, 512, 3) clouds: `hits` points of a 4 cm blob, then zero rows."""
+    xyz = np.zeros((b, GOAL_POINTS, 3), np.float32)
+    xyz[:, :hits] = rng.randn(b, hits, 3).astype(np.float32) * 0.02
+    return torch.from_numpy(xyz)
+
+
+@pytest.mark.parametrize("b,hits", [(2, 50), (3, 300), (1, 512)])
+def test_goal_sa1_compaction_walk(b, hits):
+    """K3/K5's compaction at GoalFeature's SA1 on clouds with zero rows:
+    FPS runs out of distinct points and repeats its first pick on the
+    ties, and the zero rows fill groups with one row under many indices;
+    walking only the distinct slots, each
+    weighted by its multiplicity (`distinct_slots`), gives the plain train
+    level's pooled output and batch statistics (float64 walk against
+    `sa_train_reference` within 1e-4), on 6-column rows padded to 8."""
+    from gaddpg_tpu_torch.ops import sampling
+
+    rng = np.random.RandomState(b + hits)
+    xyz = _goal_cloud(rng, b, hits)
+    centers = sampling.fps_reference(xyz, GOAL_CENTRES)
+    new_xyz = sampling.gather_points(xyz, centers)
+    idx = sampling.ball_query_reference(new_xyz, xyz, 0.02, GOAL_NSAMPLE)
+    mask, mult = sa.distinct_slots(idx)
+    for i in range(b):
+        assert len(torch.unique(centers[i])) <= hits + 1
+    if hits < GOAL_CENTRES:
+        assert (centers[:, hits + 1:] == centers[:, :1]).all()
+    full = torch.cat([xyz, xyz], dim=-1)
+    assert full.shape[-1] == GOAL_SA1[0] and sa._pad8(GOAL_SA1[0]) == 8
+    cpad = torch.nn.functional.pad(new_xyz, (0, 3))
+    dense = tuple((w, bias, torch.ones(w.shape[1]), torch.zeros(w.shape[1]))
+                  for w, bias in _weights(rng, *GOAL_SA1))
+    sa.check_tile_widths("sa_train", [w for w, *_ in dense])
+    want, want_stats = sa_train.sa_train_reference(
+        idx, full.double(), cpad.double(), tuple(tuple(t.double() for t in d) for d in dense))
+    # the walk: distinct rows only, sums weighted by multiplicity
+    rows = torch.gather(full.double(), 1, idx.reshape(b, -1, 1).long().expand(-1, -1, 6))
+    x = (rows.reshape(b, GOAL_CENTRES, GOAL_NSAMPLE, 6) - cpad.double()[:, :, None])[mask]
+    weight = mult[mask].double()[:, None]
+    seg = torch.arange(b * GOAL_CENTRES).reshape(b, GOAL_CENTRES, 1).expand_as(mask)[mask]
+    for (w, bias, scale, shift), (wm, wv) in zip(dense, want_stats, strict=True):
+        z = x @ w.double() + bias.double()
+        m = (weight * z).sum(0) / weight.sum()
+        v = (weight * z * z).sum(0) / weight.sum() - m * m
+        torch.testing.assert_close(m, wm, rtol=1e-9, atol=1e-9)
+        torch.testing.assert_close(v, wv, rtol=1e-9, atol=1e-9)
+        x = torch.relu((z - m) * (torch.rsqrt(v + 1e-5) * scale.double()) + shift.double())
+    pooled = torch.full((b * GOAL_CENTRES, x.shape[1]), -np.inf, dtype=torch.float64)
+    pooled = pooled.scatter_reduce(0, seg[:, None].expand_as(x), x, "amax")
+    torch.testing.assert_close(pooled.reshape(want.shape), want, rtol=1e-9, atol=1e-9)
+
+
+@pytest.mark.parametrize("b", [1, 32, 64])
+def test_goal_feature_launch_layouts(b):
+    """The launches GoalFeature's trunk asks for fit the card: K2 at 128
+    centres over 512 points (centres a block and shared memory on 132
+    SMs), K3/K5's row list for B x 128 groups of 64 slots, the tile
+    widths of SA1 (6 -> 64 -> 64 -> 128) and SA2, and SA3 on K4's fused
+    kernel at 259 columns, as the policy's."""
+    from gaddpg_tpu_torch.ops import build, sampling
+
+    centres, smem = sampling.ball_query_layout(b, GOAL_CENTRES, GOAL_POINTS, GOAL_NSAMPLE, 132)
+    assert 1 <= centres <= GOAL_CENTRES and smem <= build.MAX_SMEM_BYTES
+    assert sa.row_list_ints(b * GOAL_CENTRES, GOAL_NSAMPLE) == (
+        2 * b * GOAL_CENTRES + 1 + 3 * b * GOAL_CENTRES * GOAL_NSAMPLE)
+    rng = np.random.RandomState(7)
+    for cin, dims in (GOAL_SA1, (131, (128, 128, 256))):
+        sa.check_tile_widths("sa_gather_mlp", [w for w, _ in _weights(rng, cin, dims)])
+    assert sa.k4_fused_takes(*SA3[:1], *SA3[1])
