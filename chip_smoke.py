@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py [--scale2-seeds A-B [--plain-on-card K5,K6]]
                           [--k5-scale EPS,...] [--loop] [--planner] [--clutter] [--proc]
+                          [--image] [--cli]
 
 Phases, each of which must pass:
   1. build the CUDA kernels of K1 FPS, K2 ball query, K3 eval SA
@@ -153,7 +154,7 @@ Phases, each of which must pass:
  10. the model_scale 2 agent card vs CPU: `select_action` at B=8 (the
      launches of one call as at scale 1, K4 on its layer engine) within
      1e-3, and one B=8 DDPG update from a common state on each of the
-     batches of seeds 0-7 and 27, within phase 6's bounds, each logged
+     batches of seeds 0 and 27 (SCALE2_SEEDS), within phase 6's bounds, each logged
      beside the plain version's one-ulp spread. A group past its bound
      passes only as the reference's own rounding tie: of 16 CPU updates
      on one-ulp nudges of the batch's point states, one crosses the same
@@ -207,7 +208,7 @@ Phases, each of which must pass:
      counts, whether native/libmesh_tools.so was built) in a child
      process that a full run starts before phase 2 (`LibraryBuild`); one TrainConfig()
      iteration on it at 1024 envs, as phase 11 runs it ("[proc]" lines:
-     launches, the second iteration's split); K7 at B=64 over 75
+     launches, the counted iteration's split); K7 at B=64 over 75
      substeps on that reset's mesh scenes (padding spheres parked at
      z = 1e3) under phase 7's rule, K1 and K2 on its clouds as phase 9
      checks them, K3 and K4 within phase 2's bounds; then
@@ -218,14 +219,40 @@ Phases, each of which must pass:
      versions at the GoalFeature's shapes (6 input columns, 128 centres,
      zero rows), K5 and K6 timed; one GoalFeature update card vs CPU
      from a common state under phase 6's rule. --proc runs this phase
-     alone.
+     alone;
+ 14. image mode: one `Trainer(load_config(overrides={"use_image": True,
+     "domain_rand": True, "num_envs": 1024}))` iteration on the YCB
+     proxies after a warm-up one, counted and timed (112 x 112 RGBDM, two
+     ResNet-18 encoders, 4 DDPG updates at batch 256, a 100,000-transition
+     ring of bfloat16 frames, the CHOMP planner; K1-K6 launch 0 times, K7
+     as in phase 11), the collect's split and env steps/s; a DDPG and a
+     BC update at batch 256 and select_action at B = 1 and 1024 timed with
+     their device busy and idle share; the image env at B=8 card vs CPU
+     (2 reset tries, 5 planner-expert steps and the retract under phase
+     9's rule, the reset plans under phase 8's, every view by
+     `image_rule`: the card's and the CPU's render of the card's state
+     may differ on at most IMAGE_EDGE_SHARE of a view's pixels);
+     ImageFeature card vs CPU at B=8 on the Trainer's weights within
+     IMAGE_FEATURE_TOL; one image DDPG and one BC update at B=8 from a
+     common state under phase 6's rule; export_torch_state -> .npz ->
+     pretrained_resnet bit for bit; utils.video.record_episode at B=1.
+     --image runs this phase alone;
+ 15. the CLIs as child processes, each of which must exit 0:
+     `python -m gaddpg_tpu_torch.cli.train_online --config_file
+     experiments/cfgs/td3_critic_aux_policy_aux.yaml --policy DDPG
+     --max_iters 1` (256 envs, 20 updates at batch 128, a 500,000 ring;
+     the child counts the kernels' launches), then `train_test_offline
+     --test --pretrained` on its checkpoint for 256 episodes with the
+     policy and with --expert (at once), then `show_metrics` on the run.
+     --cli runs this phase alone (--image --cli both).
 
 Prints the card's name and power limit (nvidia-smi), then one JSON line
 with every kernel's numbers (launches: K1-K4 over the phase-3 calls, K5/K6
 over the phase-6 updates, K7 over the phase-8 env path;
 launches_per_train_iter over phase 11's collect and train_iter,
 launches_per_clutter_iter over phase 12's, launches_per_goal_update over
-phase 13's cli.train_goal steps; ms, plain_ms,
+phase 13's cli.train_goal steps, launches_per_image_iter over phase 14's
+counted iteration; ms, plain_ms,
 bound_ms: K1-K4 summed over the kernel's levels in one forward at
 B=1024 on the synthetic serving clouds, K5/K6 over their levels in one policy-encoder train forward at
 B=256, K7 one 75-substep launch at B=1024), then as the last line
@@ -286,8 +313,11 @@ SCALE2_FEATURE = 1024         # AgentConfig.feature_dim of a model_scale 2 agent
 # the scale 2 card-vs-CPU update: one batch per seed, each from a
 # generator of its own, so the batches do not depend on the phases before;
 # seed 27's batch sits on a rounding tie of the reference's own update
-# (ROADMAP.md Queue 3, not fault (h)), so every run holds the nudge rule
-SCALE2_SEEDS = tuple(range(8)) + (27,)
+# (ROADMAP.md Queue 3, not fault (h)), so every run holds the nudge rule.
+# The full run takes seeds 0 and 27 (each ordinary seed about 18 s on a
+# slow host, seed 27 with its 16 nudged CPU updates about 110 s), to
+# stay within the run's time limit; --scale2-seeds 0-7,27 runs more batches
+SCALE2_SEEDS = (0, 27)
 # a group whose card-vs-CPU moves cross their bound passes only as the
 # reference's own event: NUDGES one-ulp nudges of the batch's point states
 # rerun the CPU update, one of them crosses the same group's bound, and the
@@ -317,6 +347,11 @@ ENV_BATCH = 1024              # bench.py's env count
 CLUTTER_CFG = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                            "experiments", "cfgs", "td3_clutter.yaml")
 MULTI_FAST_BATCH = 256        # physics/multi.py (far clutter) against K7
+# the B=8 clutter path card vs CPU: planner-expert steps, and the steps
+# before which every env's plan is redone as a DAgger replan (cut from
+# RL_MAX_STEP's 20 to stay within the run's time limit)
+CLUTTER_CHECK_STEPS = 8
+CLUTTER_REPLANS = (2, 4, 6)
 LOOP_ENVS = 1024              # the train loop's env count: bench.py's
 LOOP_SEED = 11                # the B=8 loop check's generators
 ENV_STEPS = 20                # RL_MAX_STEP
@@ -329,6 +364,31 @@ GOAL_BATCH = 32               # cli.train_goal's default batch
 GOAL_CHECK_BATCH = 64         # the generator card vs CPU
 GOAL_LR = 1e-3                # cli.train_goal's default
 GOAL_LEVELS = (("SA1", 128, 0.02, 64), ("SA2", 32, 0.04, 128))  # GoalFeature's grouped levels
+IMAGE_ENVS = 1024              # the image iteration's env count: bench.py's
+IMAGE_CHECK_BATCH = 8         # the image env, encoder and updates card vs CPU
+IMAGE_STEPS = 5               # planner-expert steps of the B=8 image env check
+# record_episode's horizon: the per-env contact model at B=1 takes about
+# 12 ms a substep on the card (a full 21-step episode and its retract,
+# 4,950 substeps, took 58 s), so the smoke cuts the episode at 3 steps
+VIDEO_STEPS = 3
+# a view's pixels whose mask, depth (1e-4 m) or RGB (1e-4) differ between
+# the card's and the CPU's render of the same state: projection ties at
+# pixel edges (a point's pixel index is rounded from its camera
+# coordinates, which the two devices sum in another order)
+IMAGE_EDGE_SHARE = 0.01
+# two grasp goals whose point-matching distances (the mean L1 over the 6
+# finger points, expert/goals.py) from one hand pose differ by at most
+# this many metres are a tie of the nearest-grasp query, which the two
+# devices' rounding may break either way
+GOAL_TIE_TOL = 1e-5
+# ImageFeature card vs CPU, largest difference over the output's largest
+# magnitude: eval mode is float32 convolutions in another order (TF32
+# off); train mode normalises by batch statistics over B=8 frames
+IMAGE_FEATURE_TOL = {"eval": 1e-4, "train": 1e-3}
+CLI_CFG = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                       "experiments", "cfgs", "td3_critic_aux_policy_aux.yaml")
+CLI_EPISODES = 256            # test_ycb.sh's evaluator cut to one wave of the YAML's envs
+CLI_TIMEOUT = 900             # s, each CLI child
 # a GoalFeature update: one train forward (the backward is the plain recompute)
 GOAL_PER_UPDATE = {"fps": 2, "ball_query": 2, "sa_gather_mlp": 0, "mlp_maxpool": 0,
                    "sa_train": 2, "groupall_train": 1, "contact_scan": 0}
@@ -917,6 +977,7 @@ class Smoke:
         self.per_iter = {}  # launches over one train iteration (phase 11)
         self.per_clutter_iter = {}  # and over one td3_clutter iteration (phase 12)
         self.per_goal_update = {}  # and per GoalFeature update (phase 13)
+        self.per_image_iter = {}  # and over one image-mode iteration (phase 14)
         self.card = card_line()
         self._scale2 = None
 
@@ -2186,8 +2247,8 @@ class Smoke:
 
     def env_call_times(self, env, gen, stepped):
         """step_batched (median of 7, bench.py's constant action, with its
-        device profile), reset and retract_batched (median of 3) at
-        ENV_BATCH, host clock, synchronised."""
+        device profile), reset and retract_batched (one call each after a
+        warm-up) at ENV_BATCH, host clock, synchronised."""
         d = self.device
         state, _ = env.reset(ENV_BATCH, gen)
         act = torch.tensor([0.0, 0.0, 0.02, 0.0, 0.0, 0.0], device=d).repeat(ENV_BATCH, 1)
@@ -2208,11 +2269,11 @@ class Smoke:
                 f"{ms / launches * 1e3:.1f} us of host time each")
             for name, t in rows[:8]:
                 log(f"[profile]   {t:.4f} ms  {name[:100]}")
-        reset_ms = host_ms(lambda: env.reset(ENV_BATCH, gen), reps=3)
-        retract_ms = host_ms(lambda: env.retract_batched(stepped), reps=3)
+        reset_ms = host_ms(lambda: env.reset(ENV_BATCH, gen), reps=1)
+        retract_ms = host_ms(lambda: env.retract_batched(stepped), reps=1)
         expert = "the CHOMP planner" if env.p.use_planner else "the goal servo"
         log(f"[time] reset B={ENV_BATCH} ({expert}): {reset_ms:.3f} ms; retract_batched "
-            f"B={ENV_BATCH}: {retract_ms:.3f} ms (host clock, synchronised, median of 3 after a "
+            f"B={ENV_BATCH}: {retract_ms:.3f} ms (host clock, synchronised, one call after a "
             f"warm-up; {self.card})")
 
     def k7_timings(self):
@@ -2659,7 +2720,7 @@ class Smoke:
 
 
     # -- phase 11: the online train loop ---------------------------------------------------
-    def loop_path(self, lib=None, tag="loop", profile=True):
+    def loop_path(self, lib=None, tag="loop", profile=True, warm=True):
         """One `Trainer` iteration at full width, as a user runs it: the
         default TrainConfig (batch 256 x 1030 points, 4 DDPG updates, a
         100,000-transition ring) at LOOP_ENVS envs with its own EnvParams()
@@ -2670,8 +2731,9 @@ class Smoke:
         retract; train_iter K1, K2, K5, K6 through the four updates. A
         second iteration gives the times of record (the first pays for the
         first CUDA update and the allocations) and, with `profile`, its
-        parts' profile. `lib` replaces the YCB proxies and `tag` labels the
-        lines. Returns {kernel: launches over the first iteration}; the
+        parts' profile; with warm=False the counted iteration gives them
+        (phase 13: the card is warm from phase 11's iterations). `lib`
+        replaces the YCB proxies and `tag` labels the lines. Returns {kernel: launches over the first iteration}; the
         Trainer and the first iteration's record stay in `self.loop_run`."""
         import tempfile
 
@@ -2720,12 +2782,13 @@ class Smoke:
             f"{stats['buffer_idx']}, update_step {tr.update_step}; metrics " + ", ".join(
                 f"{k} {v:.5g}" for k, v in metrics.items()) + f" ({card})")
         # the second iteration, warm: the numbers of record
-        it = self.timed_iteration(tr)
+        it = self.timed_iteration(tr) if warm else first
+        which = "second iteration" if warm else "the counted iteration"
         spans, collect_ms, train_ms, stats = it["spans"], it["collect_ms"], it["train_ms"], \
             it["stats"]
         steps = LOOP_ENVS * horizon
         log(f"[{tag}] collect: {collect_split(spans, collect_ms, horizon)} (host clock, "
-            f"synchronised around each; second iteration; {card})")
+            f"synchronised around each; {which}; {card})")
         log(f"[{tag}] collect: {steps} env steps ({LOOP_ENVS} envs x {horizon}), "
             f"{steps / collect_ms * 1e3:.1f} env steps/s; {it['inserted']} valid "
             f"transitions inserted, {it['inserted'] / collect_ms * 1e3:.1f}/s; "
@@ -2733,7 +2796,7 @@ class Smoke:
             f"{stats['rollout_success']:.4f}, explore share {stats['explore_frac']:.4f} ({card})")
         log(f"[{tag}] train_iter: {train_ms:.3f} ms, {train_ms / cfg.updates_per_iter:.3f} ms per "
             f"update, update_step {tr.update_step}; iteration {collect_ms + train_ms:.3f} ms "
-            f"(second iteration; {card})")
+            f"({which}; {card})")
         self.loop_run = (tr, first)
         if profile:
             self.loop_profile(tr, it)
@@ -3187,11 +3250,11 @@ class Smoke:
         """The clutter path at B=8 on the card and on the CPU, EnvParams(
         num_clutter=2, use_planner=True), CPU generators in the same state
         on both sides: each of two reset tries' reset_scene from the CPU's
-        scene, 20 planner-expert steps (each from the CPU's state) and
+        scene, CLUTTER_CHECK_STEPS planner-expert steps (each from the CPU's state) and
         retract_batched within phase 9's env rule, the clutter bodies held
         with the target (`env_ratio`) and the grasp goal by `compare_env`'s
         `goal_ties`; the reset plans and a DAgger replan
-        of every env at steps 5, 10 and 15 within phase 8's `plan_rule`
+        of every env before the steps of CLUTTER_REPLANS within phase 8's `plan_rule`
         against the CPU's replan of the same state (the card's reset state
         for the reset's; a verdict may differ where the CPU's own nudges flip
         it); then generate_scenes -> Trainer.evaluate(scenes=, expert=True)
@@ -3260,8 +3323,8 @@ class Smoke:
                 st_c, ob_c = _where(keep, st_c, rs_c), _where(keep, ob_c, ro_c)
         if not st_c.valid_scene.any():
             raise AssertionError("clutter B=8: no valid scene")
-        for i in range(ENV_STEPS):
-            if i in (5, 10, 15):  # a DAgger replan of every env from its current state
+        for i in range(CLUTTER_CHECK_STEPS):
+            if i in CLUTTER_REPLANS:  # a DAgger replan of every env from its current state
                 rp_g = env.replan(st_c.to(self.device))
                 st_c = env_c.replan(st_c)
                 hold_plans(f"step {i} replan", rp_g, st_c)
@@ -3286,7 +3349,7 @@ class Smoke:
             if not (probe.view(ULP_PROBES, -1) != lift_c[differ]).any(dim=0).all():
                 raise AssertionError(f"clutter B=8: lifts {lift_g.tolist()} vs "
                                      f"{lift_c.tolist()}, not from a chaotic grasp")
-        log(f"[clutter] B=8 card vs CPU: {p.reset_tries} reset tries, {ENV_STEPS} planner-expert "
+        log(f"[clutter] B=8 card vs CPU: {p.reset_tries} reset tries, {CLUTTER_CHECK_STEPS} planner-expert "
             f"steps and retract_batched within phase 9's rule (target, fingers and clutter; "
             f"chaotic envs {chaotic.nonzero()[:, 0].tolist()}, largest unmatched point share "
             f"{worst:.4f}); {plans['held']} plans (the reset tries' and 3 DAgger replans of "
@@ -3615,6 +3678,380 @@ class Smoke:
                       (torch.cat([xyz, feats], dim=-1), train_dense(goal.encoder.sa[2]))))
         return calls
 
+    # -- phase 14: image mode ----------------------------------------------------------------
+    def image_path(self):
+        """One image-mode `Trainer` iteration at full width, as a user runs
+        it: TrainConfig() with use_image and domain_rand at IMAGE_ENVS envs
+        (AgentConfig.image_size 112, so a 112 x 112 camera; two ResNet-18
+        encoders; 4 DDPG updates at batch 256; a 100,000-transition ring
+        with bfloat16 frames; EnvParams()'s CHOMP planner) on the YCB
+        proxies. A warm-up iteration, then one counted and timed: the image
+        agent encodes no points, so K1-K6 launch 0 times and K7 as in phase
+        11 (2 per reset, 1 per step, 11 per retract). Returns (the Trainer,
+        the timed iteration's record, {kernel: launches over it})."""
+        import tempfile
+
+        from gaddpg_tpu_torch.envs.assets import library_from_index
+        from gaddpg_tpu_torch.train import Trainer, load_config
+
+        card = self.card
+        cfg = load_config(overrides={"use_image": True, "domain_rand": True,
+                                     "num_envs": IMAGE_ENVS,
+                                     "output_dir": tempfile.mkdtemp(prefix="image_")},
+                          policy="DDPG")
+        cam = cfg.env.camera
+        shape = (cfg.agent.image_size, cam.width, cam.height, cfg.env.domain_rand,
+                 cfg.env.use_planner, cfg.batch_size, cfg.updates_per_iter, cfg.buffer_size)
+        if shape != (112, 112, 112, True, True, 256, 4, 100000):
+            raise AssertionError(f"image: the configuration gives {shape}")
+        t0 = time.perf_counter()
+        tr = Trainer(cfg, lib=library_from_index("ycb", "train"))  # device="cuda"
+        torch.cuda.synchronize()
+        frame = tr.buffer.image_state[0].nbytes
+        log(f"[image] Trainer(use_image, domain_rand) at {IMAGE_ENVS} envs, {cam.width} x "
+            f"{cam.height} RGBDM, two ResNet-18 encoders, batch {cfg.batch_size}, "
+            f"{cfg.updates_per_iter} updates per train_iter, ring of {cfg.buffer_size}: replay "
+            f"{tr.buffer.nbytes} bytes on the card ({tr.buffer.image_state.dtype} frames of "
+            f"{frame} bytes, {tr.buffer.image_state.nbytes} bytes in all); set up in "
+            f"{(time.perf_counter() - t0) * 1e3:.1f} ms ({card})")
+        torch.cuda.reset_peak_memory_stats()
+        warm = self.timed_iteration(tr)
+        log(f"[image] warm-up iteration: collect {warm['collect_ms']:.3f} ms, train_iter "
+            f"{warm['train_ms']:.3f} ms ({card})")
+        # the main path: one iteration, counted and timed
+        self.reset_counts()
+        it = self.timed_iteration(tr, counts=True)
+        stats, collect_counts, metrics, train_counts = (it[k] for k in (
+            "stats", "collect_counts", "metrics", "train_counts"))
+        horizon = cfg.rollout_horizon
+        want_collect = {k: 0 for k in self.wrappers}
+        want_collect["contact_scan"] = RESET_K7 + STEP_K7 * horizon + RETRACT_K7
+        want_train = {k: 0 for k in self.wrappers}
+        if collect_counts != want_collect or train_counts != want_train:
+            raise AssertionError(f"image: launches {collect_counts} in collect, {train_counts} "
+                                 f"in train_iter; expected {want_collect}, {want_train}")
+        per_iter = {k: collect_counts[k] + train_counts[k] for k in self.wrappers}
+        bad = [k for k, v in {**stats, **metrics}.items() if not np.isfinite(v)]
+        if bad or not metrics or tr.update_step != 2 * cfg.updates_per_iter:
+            raise AssertionError(f"image: non-finite or missing metrics {bad} {metrics}, "
+                                 f"update_step {tr.update_step}")
+        n = tr.buffer.filled
+        frames = tr.buffer.image_state[:n].float()
+        if tr.buffer.image_state.dtype != torch.bfloat16 or not torch.isfinite(frames).all() \
+                or not bool((frames[:, 4] == 0).any()):
+            raise AssertionError("image: the ring's frames are not finite bfloat16 RGBDM with "
+                                 "target pixels")
+        del frames
+        collect_ms, train_ms = it["collect_ms"], it["train_ms"]
+        steps = IMAGE_ENVS * horizon
+        log(f"[image] launches per image iteration (collect + train_iter): {per_iter}; collect "
+            f"{collect_counts}, train_iter {train_counts}: the image agent encodes no points "
+            f"(K1-K6 0), K7 per reset, step and retract as in phase 11 ({card})")
+        log(f"[image] collect: {collect_split(it['spans'], collect_ms, horizon)} (host clock, "
+            f"synchronised around each; the counted iteration after a warm-up; {card})")
+        log(f"[image] collect: {steps} env steps ({IMAGE_ENVS} envs x {horizon}), "
+            f"{steps / collect_ms * 1e3:.1f} env steps/s; {it['inserted']} valid transitions "
+            f"inserted; valid scenes {stats['valid_scene_frac']:.4f}, success "
+            f"{stats['rollout_success']:.4f}, explore share {stats['explore_frac']:.4f} ({card})")
+        log(f"[image] train_iter: {train_ms:.3f} ms, {train_ms / cfg.updates_per_iter:.3f} ms per "
+            f"update; iteration {collect_ms + train_ms:.3f} ms; metrics " + ", ".join(
+                f"{k} {v:.5g}" for k, v in metrics.items()) + f" ({card})")
+        return tr, it, per_iter
+
+    def image_timings(self, tr):
+        """The image agent's calls at full width on the Trainer's state and
+        ring: a DDPG and a BC update at batch 256 (host clock, median of 3
+        after a warm-up; device busy and idle share under torch.profiler)
+        and select_action at B = 1 and IMAGE_ENVS on the ring's frames;
+        then the phase's peak memory."""
+        from gaddpg_tpu_torch import replay
+        from gaddpg_tpu_torch.agents import make_bc_update, make_select_action
+
+        card, cfg = self.card, tr.cfg
+        batch = replay.sample(tr.buffer, cfg.batch_size, episode_max_len=8,
+                              generator=tr.generator)
+        state = tr.agent_state
+        bc = make_bc_update(cfg.agent)
+        select = make_select_action(cfg.agent)
+        idx = torch.randint(0, tr.buffer.filled, (IMAGE_ENVS,), generator=tr.generator,
+                            device=self.device)
+        images = tr.buffer.image_state[idx].float()
+        calls = {"ddpg update": lambda: tr.update(state, batch, tr.generator),
+                 "bc update": lambda: bc(state, batch)}
+        for b in (1, IMAGE_ENVS):
+            calls[f"select_action B={b}"] = (
+                lambda b=b: select(state, images[:b], torch.full((b,), 10.0, device=self.device)))
+        for name, fn in calls.items():
+            out = fn()
+            if "update" in name:
+                bad = [k for k, v in out.items() if not torch.isfinite(v).all()]
+            else:
+                bad = [] if torch.isfinite(out[0]).all() else ["action"]
+            if bad:
+                raise AssertionError(f"image {name}: non-finite {bad}")
+            ms = host_ms(fn, reps=3)
+            busy, rows, _, n = device_profile(fn, calls=1, count=True, host_ops=False)
+            note = ("device time not measured (the profiler saw no device activity)" if not busy
+                    else f"device busy {busy:.3f} ms, idle share {max(0.0, 1 - busy / ms):.3f}, "
+                         f"{n:.0f} device activities; top: " + "; ".join(
+                             f"{k[:60]} {v:.3f} ms" for k, v in rows[:3]))
+            log(f"[image] {name} (batch {cfg.batch_size if 'update' in name else ''}): "
+                f"{ms:.3f} ms (host clock, median of 3); {note} ({card})")
+        log(f"[memory] image phase peak allocated {torch.cuda.max_memory_allocated() / 2**30:.3f}"
+            f" GiB ({card})")
+
+    def image_rule(self, label, env, env_c, st_g, gen):
+        """The card's render of the card's own env state against the CPU's
+        render of that same state, with the same draws: at most
+        IMAGE_EDGE_SHARE of a view's pixels may differ (mask, depth by more
+        than 1e-4 m or RGB by more than 1e-4); returns the largest share."""
+        b, p = st_g.obj_idx.shape[0], env_c.p
+        draws = {"keep_u": torch.rand((b, p.new_points_per_step), generator=gen),
+                 "idx": torch.zeros((b, p.uniform_num_pts), dtype=torch.int64),
+                 "image_noise": torch.randn((b, 3, p.camera.height, p.camera.width),
+                                            generator=gen)}
+        img_g = env._observe_impl(st_g, draws=draws)[1].image.cpu()
+        img_c = env_c._observe_impl(st_g.to("cpu"), draws=draws)[1].image
+        if not torch.isfinite(img_g).all() or img_g.shape[1:] != (5, p.camera.height,
+                                                                   p.camera.width):
+            raise AssertionError(f"image {label}: card images {tuple(img_g.shape)} not finite")
+        off = ((img_g[:, 4] != img_c[:, 4]) | ((img_g[:, 3] - img_c[:, 3]).abs() > 1e-4)
+               | ((img_g[:, :3] - img_c[:, :3]).abs() > 1e-4).any(dim=1))
+        share = off.float().mean(dim=(1, 2))
+        rgb = (img_g[:, :3] - img_c[:, :3]).abs().amax(dim=1)[~off].max().item()
+        if share.max() > IMAGE_EDGE_SHARE:
+            raise AssertionError(f"image {label}: pixel shares off {share.tolist()} (bound "
+                                 f"{IMAGE_EDGE_SHARE})")
+        log(f"[image]   {label}: card vs CPU render of the card's state: pixels off per view "
+            f"{[round(x, 5) for x in share.tolist()]} (mask differs on "
+            f"{int((img_g[:, 4] != img_c[:, 4]).sum())} of {img_g[:, 4].numel()}), RGB elsewhere "
+            f"within {rgb:.2e}")
+        return share.max().item()
+
+    @staticmethod
+    def goal_near_ties(env_c):
+        """`compare_env`'s `goal_ties` for the image check: the CPU's goal
+        query on the card's state (phase 12's rule), keeping the card's own
+        goal where its point-matching distance from the card's hand lies
+        within GOAL_TIE_TOL of the CPU's choice: the two devices compute
+        the distances of one state in another order, so a near-tie falls
+        either way."""
+        from gaddpg_tpu_torch.geometry.gripper import HAND_FINGER_POINTS
+        from gaddpg_tpu_torch.geometry.se3 import se3_inverse
+
+        fingers = torch.tensor(HAND_FINGER_POINTS, dtype=torch.float32)
+
+        def ties(g):
+            ref = env_c._update_goal(g)
+            hand_inv = se3_inverse(env_c._hand(g))
+            obj = env_c._obj_pose(g.phys.obj)
+
+            def dist(goal_obj):
+                rel = hand_inv @ obj @ goal_obj
+                pts = rel[:, :3, :3] @ fingers + rel[:, :3, 3:]
+                return (fingers - pts).abs().sum(dim=-2).mean(dim=-1)
+
+            gap = (dist(g.goal_obj) - dist(ref.goal_obj)).abs()
+            tie = gap <= GOAL_TIE_TOL
+            broken = tie & (g.goal_obj != ref.goal_obj).flatten(1).any(dim=1)
+            if broken.any():
+                log(f"[image]   envs {broken.nonzero()[:, 0].tolist()}: the devices pick other "
+                    f"grasps at distances {[f'{x:.2e}' for x in gap[broken].tolist()]} m apart "
+                    f"(a near-tie, bound {GOAL_TIE_TOL})")
+            return dataclasses.replace(
+                ref, goal_obj=torch.where(tie[:, None, None], g.goal_obj, ref.goal_obj))
+
+        return ties
+
+    def image_card_vs_cpu(self, lib):
+        """The image env at B=8 on the card and on the CPU, EnvParams(
+        use_image, domain_rand, 112 x 112) with its CHOMP planner, CPU
+        generators in the same state on both sides (the visual seeds and
+        the pixel noise among their draws): each of two reset tries'
+        reset_scene from the CPU's scene, IMAGE_STEPS planner-expert steps
+        (each from the CPU's state) and retract_batched within phase 9's
+        env rule, the grasp goal held as phase 12 holds it (`compare_env`'s
+        `goal_ties`: the arm differs by up to two servo quanta, which moves
+        the hand across near-ties of the nearest-grasp query) and, on the
+        card's own state, by `goal_near_ties`, the reset plans within phase
+        8's plan_rule, and every view by `image_rule`."""
+        from gaddpg_tpu_torch.envs.grasp_env import EnvParams, PandaGraspEnv, _where
+        from gaddpg_tpu_torch.expert.chomp import plan_to_goal
+        from gaddpg_tpu_torch.physics.types import map_tensors
+        from gaddpg_tpu_torch.render.camera import CameraParams
+
+        b = IMAGE_CHECK_BATCH
+        p = EnvParams(camera=CameraParams(width=112, height=112), use_image=True, domain_rand=True)
+        env, env_c = PandaGraspEnv(p, lib), PandaGraspEnv(p, lib, device="cpu")
+        gens = [torch.Generator().manual_seed(51) for _ in range(2)]
+        view_gen = torch.Generator().manual_seed(52)
+        nudge_gen = torch.Generator().manual_seed(53)
+        rep = lambda t, envs: t[envs].repeat(ULP_PROBES, *([1] * (t.dim() - 1)))  # noqa: E731
+        card = lambda x: {k: v.to(self.device) for k, v in x.items()}  # noqa: E731
+
+        def nudge(pos):
+            return one_ulp(pos, nudge_gen)
+
+        plans = {"chaotic": 0, "branch": 0, "left": 0}
+        worst, edge, chaotic = 0.0, 0.0, torch.zeros(b, dtype=torch.bool)
+        st_c = ob_c = None
+        for r in range(p.reset_tries):
+            scene = env_c.sample_scene(b, torch.Generator().manual_seed(60 + r))
+            rs_g, ro_g = env.reset_scene(card(scene), gens[0])
+            rs_c, ro_c = env_c.reset_scene(scene, gens[1])
+            if not torch.equal(rs_g.vis_seed.cpu(), rs_c.vis_seed):
+                raise AssertionError("image B=8: the visual seeds differ card vs CPU")
+            # the reset's plans against the CPU's planner from the card's own state
+            inputs = env_c.plan_inputs(rs_g.to("cpu"))
+            ref = env_c.replan(rs_g.to("cpu"))
+
+            def probe(envs, inputs=inputs):  # every planner input nudged, as phase 8's
+                sub = {k: (nudge(rep(v, envs)) if torch.is_tensor(v) else v)
+                       for k, v in inputs.items()}
+                pl, oks = plan_to_goal(**sub)
+                return pl.view(ULP_PROBES, len(envs), *pl.shape[1:]), oks.view(ULP_PROBES, -1)
+
+            got = plan_rule(f"image B=8 reset try {r}", rs_g.plan.cpu(), rs_g.plan_ok.cpu(),
+                            ref.plan, ref.plan_ok, probe)
+            for k in plans:
+                plans[k] += got[f"n_{k}"]
+
+            def reset_probe(envs, scene=scene):
+                sub = {k: rep(v, envs) for k, v in scene.items()}
+                sub["obj_pos"] = nudge(sub["obj_pos"])
+                return env_c.reset_scene(sub)[0]
+
+            w, ch = self.compare_env(f"image reset try {r}", rs_g, ro_g, rs_c, ro_c, 1e-6,
+                                     reset_probe, goal_ties=self.goal_near_ties(env_c))
+            worst, chaotic = max(worst, w), chaotic | ch
+            edge = max(edge, self.image_rule(f"reset try {r}", env, env_c, rs_g, view_gen))
+            if st_c is None:
+                st_c, ob_c = rs_c, ro_c
+            else:  # the first valid try per env, as `reset` keeps it
+                keep = st_c.valid_scene
+                st_c, ob_c = _where(keep, st_c, rs_c), _where(keep, ob_c, ro_c)
+        for i in range(IMAGE_STEPS):
+            prev, acts = st_c, env_c.expert_action(st_c)
+            got = env.step_batched(prev.to(self.device), acts.to(self.device), gens[0])
+            st_c, ob_c, _, _, _ = env_c.step_batched(prev, acts, gens[1])
+
+            def step_probe(envs, prev=prev, acts=acts):
+                sub = nudge_state(map_tensors(prev, lambda t: rep(t, envs)), nudge)
+                return env_c.step_batched(sub, rep(acts, envs))[0]
+
+            w, ch = self.compare_env(f"image step {i}", got[0], got[1], st_c, ob_c,
+                                     2 * ARM_SERVO_QUANTUM, step_probe,
+                                     goal_ties=self.goal_near_ties(env_c))
+            worst, chaotic = max(worst, w), chaotic | ch
+            edge = max(edge, self.image_rule(f"step {i}", env, env_c, got[0], view_gen))
+        lift_g = env.retract_batched(st_c.to(self.device))[1].cpu()
+        lift_c = env_c.retract_batched(st_c)[1]
+        differ = (lift_g != lift_c).nonzero()[:, 0]
+        if len(differ):
+            probe = env_c.retract_batched(nudge_state(map_tensors(st_c, lambda t: rep(t, differ)),
+                                                      nudge))[1]
+            if not (probe.view(ULP_PROBES, -1) != lift_c[differ]).any(dim=0).all():
+                raise AssertionError(f"image B=8: lifts {lift_g.tolist()} vs "
+                                     f"{lift_c.tolist()}, not from a chaotic grasp")
+        log(f"[image] B=8 card vs CPU: {p.reset_tries} reset tries, {IMAGE_STEPS} planner-expert "
+            f"steps and retract_batched within phase 9's rule (chaotic envs "
+            f"{chaotic.nonzero()[:, 0].tolist()}, largest unmatched point share {worst:.4f}); "
+            f"the reset plans within plan_rule ({plans['chaotic']} chaotic, {plans['branch']} "
+            f"on another IK branch, {plans['left']} left); largest share of a view's pixels off "
+            f"{edge:.5f} (bound {IMAGE_EDGE_SHARE}); valid {st_c.valid_scene.tolist()}; lifts "
+            f"card {lift_g.tolist()}, CPU {lift_c.tolist()} ok ({self.card})")
+        return ob_c.image
+
+    def image_agent_checks(self, tr, frames):
+        """ImageFeature card vs CPU at B=8 on the same weights (the
+        Trainer's encoders) and real frames, eval and train forward, within
+        IMAGE_FEATURE_TOL of the output's largest magnitude; one image DDPG
+        and one image BC update at B=8 from a common state (carried Adam
+        moments, the Q2 hard copy on) within phase 6's rule, on a batch of
+        the ring's transitions; the export_torch_state -> .npz ->
+        pretrained_resnet round trip giving both encoders the source
+        encoder's features; and utils.video.record_episode for one episode
+        at B=1 (the per-env step, the image policy)."""
+        import tempfile
+
+        from gaddpg_tpu_torch import replay
+        from gaddpg_tpu_torch.agents import (
+            AgentConfig, create_agent_state, make_bc_update, make_ddpg_update, make_select_action,
+        )
+        from gaddpg_tpu_torch.models import resnet
+        from gaddpg_tpu_torch.utils import video
+
+        card, b = self.card, IMAGE_CHECK_BATCH
+        feat = tr.agent_state.feat
+        feat_c = copy.deepcopy(feat).to("cpu")
+        img = frames[:b].to(self.device)
+        act = torch.rand((b, 6), generator=torch.Generator().manual_seed(54)) * 0.1 - 0.05
+        errs = {}
+        with torch.no_grad():
+            for mode, train in (("eval", False), ("train", True)):
+                for path, kw in (("policy", {}), ("value", {"action": act, "value": True})):
+                    got = feat(img, **{k: (v.to(self.device) if torch.is_tensor(v) else v)
+                                       for k, v in kw.items()}, train=train)
+                    want = feat_c(img.cpu(), **kw, train=train)
+                    got, want = (got[0], want[0]) if train else (got, want)
+                    err = (got.cpu() - want).abs().max().item() / want.abs().max().item()
+                    errs[f"{path} {mode}"] = err
+                    if err > IMAGE_FEATURE_TOL[mode]:
+                        raise AssertionError(f"image: ImageFeature {path} {mode} card vs CPU off "
+                                             f"by {err:.3e} of the output's largest")
+        log(f"[image] ImageFeature card vs CPU at B={b}, 112 x 112, the Trainer's weights: "
+            + ", ".join(f"{k} {v:.2e}" for k, v in errs.items())
+            + f" of the output's largest (bounds {IMAGE_FEATURE_TOL}) ok ({card})")
+
+        cfg = AgentConfig(use_image=True, target_update_interval=1)
+        batches = [replay.sample(tr.buffer, b, episode_max_len=8, generator=tr.generator)
+                   for _ in range(3)]
+        for name, make in (("ddpg", make_ddpg_update), ("bc", make_bc_update)):
+            update, update_c = make(cfg), make(cfg, device="cpu")
+            state_c = create_agent_state(cfg, generator=torch.Generator().manual_seed(55),
+                                         device="cpu")
+            draws = [torch.rand((b, 6), generator=torch.Generator().manual_seed(56 + i))
+                     for i in range(2)]
+            args = (lambda i: {"noise_draws": draws[i]}) if name == "ddpg" else (lambda i: {})
+            update_c(state_c, _cpu(batches[0]), **args(0))  # carried Adam moments
+            state_c.update_step = 0
+            before, state = state_c.to("cpu"), state_c.to(self.device)
+            got = update(state, batches[1], **{k: v.to(self.device) for k, v in args(1).items()})
+            want = update_c(state_c, _cpu(batches[1]), **args(1))
+            merr = 0.0
+            for k, w in want.items():
+                torch.testing.assert_close(got[k].cpu(), w, rtol=1e-3, atol=1e-3, msg=k)
+                merr = max(merr, (got[k].cpu() - w).abs().item())
+            serr, _ = self.compare_updated(cfg, before, state, state_c)
+            log(f"[image] {name} update B={b} card vs CPU from a common state: metrics within "
+                f"{merr:.3e}, running statistics {serr:.3e}, parameter and target moves within "
+                f"phase 6's bounds ok ({card})")
+
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, "encoder.npz")
+            np.savez(path, **resnet.export_torch_state(feat.encoder))
+            loaded = create_agent_state(AgentConfig(use_image=True, pretrained_resnet=path))
+        with torch.no_grad():
+            want = feat.encoder(img)
+            gaps = [(enc(img) - want).abs().max().item()
+                    for enc in (loaded.feat.encoder, loaded.feat.value_encoder)]
+        if max(gaps) > 0.0:
+            raise AssertionError(f"image: the exported encoder's features differ by {gaps}")
+        log(f"[image] export_torch_state -> .npz -> pretrained_resnet: both encoders give the "
+            f"source encoder's features bit for bit on the card ok")
+
+        t0 = time.perf_counter()
+        frames_ep, reward, infos = video.record_episode(
+            tr.env, tr.agent_state, make_select_action(tr.cfg.agent),
+            torch.Generator(device=self.device).manual_seed(57), max_steps=VIDEO_STEPS,
+            use_image_policy=True)
+        if frames_ep.shape[1:] != (5, 112, 112) or not np.isfinite(frames_ep).all():
+            raise AssertionError(f"image: record_episode frames {frames_ep.shape}")
+        log(f"[image] utils.video.record_episode at B=1 (the image policy, the per-env step, "
+            f"max_steps={VIDEO_STEPS}): "
+            f"{len(frames_ep)} frames of {frames_ep.shape[1:]}, finite, lift {reward}, in "
+            f"{time.perf_counter() - t0:.1f} s ok ({card})")
+
     def kernel_line(self, totals):
         rows = []
         for kernel in self.wrappers:
@@ -3629,6 +4066,7 @@ class Smoke:
                 "launches_per_train_iter": self.per_iter[kernel],
                 "launches_per_clutter_iter": self.per_clutter_iter[kernel],
                 "launches_per_goal_update": self.per_goal_update[kernel],
+                "launches_per_image_iter": self.per_image_iter[kernel],
                 "max_abs_err": self.errors[kernel],
                 "ms": t["ms"],
                 "plain_ms": t["plain_ms"],
@@ -3718,6 +4156,130 @@ def clutter_phase(smoke, gen, mark=None):
         mark("clutter card vs CPU")
 
 
+def image_phase(smoke, mark=None):
+    """Phase 14: the image-mode iteration at full width, the image agent's
+    timings, the B=8 image env, encoder and updates card vs CPU, the
+    export round trip and record_episode."""
+    from gaddpg_tpu_torch.envs.assets import library_from_index
+
+    t0 = time.perf_counter()
+    tr, _, smoke.per_image_iter = smoke.image_path()
+    smoke.image_timings(tr)
+    if mark:
+        mark("image loop")
+    frames = smoke.image_card_vs_cpu(library_from_index("ycb", "train"))
+    smoke.image_agent_checks(tr, frames)
+    del tr
+    torch.cuda.empty_cache()
+    if mark:
+        mark("image card vs CPU")
+    log(f"[image] phase 14 took {time.perf_counter() - t0:.1f} s ({smoke.card})")
+
+
+# run in a CLI child before the CLI's own main: the kernels' launch counts,
+# printed as one line when the child exits
+_COUNTING_CHILD = """
+import atexit, json, runpy, sys
+from gaddpg_tpu_torch.ops import contact_scan, sa, sa_train, sampling
+wrappers = {"fps": sampling.furthest_point_sampling, "ball_query": sampling.ball_query,
+            "sa_gather_mlp": sa.sa_gather_mlp, "mlp_maxpool": sa.mlp_maxpool,
+            "sa_train": sa_train.sa_train_fused, "groupall_train": sa_train.groupall_train_fused,
+            "contact_scan": contact_scan.contact_scan}
+atexit.register(lambda: print("[launches] " + json.dumps(
+    {k: w.launches for k, w in wrappers.items()}), flush=True))
+sys.argv = [sys.argv[1]] + sys.argv[2:]
+runpy.run_module(sys.argv[0], run_name="__main__", alter_sys=True)
+"""
+
+
+def cli_phase(smoke, mark=None):
+    """Phase 15: the CLIs as child processes, as a user runs them:
+    train_online.sh's command for one iteration of td3_critic_aux_policy_aux.yaml
+    at its own sizes (counted: the child prints the kernels' launches when
+    it exits), test_ycb.sh's evaluator on its checkpoint for one wave of
+    CLI_EPISODES episodes with the policy and with --expert (the two at
+    once), then show_metrics. Each must exit 0."""
+    import tempfile
+
+    from gaddpg_tpu_torch.cli.show_metrics import summarize
+
+    card = smoke.card
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [root] + [x for x in os.environ.get("PYTHONPATH", "").split(os.pathsep) if x]))
+    tmp = tempfile.mkdtemp(prefix="cli_")
+    run_dir = os.path.join(tmp, "run")
+
+    def start(argv):
+        return subprocess.Popen([sys.executable, *argv], cwd=root, env=env, text=True,
+                                stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+
+    def finish(label, proc, t0):
+        try:
+            out, _ = proc.communicate(timeout=CLI_TIMEOUT)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.communicate()
+            raise AssertionError(f"cli: {label} did not end within {CLI_TIMEOUT} s")
+        secs = time.perf_counter() - t0
+        for line in out.strip().splitlines()[-12:]:
+            log(f"[cli]   {label}: {line}")
+        if proc.returncode != 0:
+            raise AssertionError(f"cli: {label} exited {proc.returncode}")
+        return out, secs
+
+    t0 = time.perf_counter()
+    argv = ["-m", "gaddpg_tpu_torch.cli.train_online", "--config_file", CLI_CFG,
+            "--policy", "DDPG", "--max_iters", "1", "--log_dir", run_dir]
+    out, secs = finish("train_online", start(["-c", _COUNTING_CHILD] + argv[1:]), t0)
+    with open(os.path.join(run_dir, "config.json")) as f:
+        cfg = json.load(f)
+    shape = (cfg["num_envs"], cfg["batch_size"], cfg["updates_per_iter"], cfg["buffer_size"],
+             cfg["dagger"], cfg["onpolicy"], cfg["env"]["use_planner"])
+    if shape != (256, 128, 20, 500000, True, True, True):
+        raise AssertionError(f"cli: train_online ran {shape}")
+    counts = json.loads(out.split("[launches] ")[-1].splitlines()[0])
+    if min(counts.values()) == 0:
+        raise AssertionError(f"cli: train_online left a kernel unlaunched: {counts}")
+    m = summarize(run_dir)
+    if not os.path.exists(os.path.join(run_dir, "agent_latest.pt")) or m is None or \
+            m["step"] != cfg["updates_per_iter"] or not all(np.isfinite(list(m.values()))):
+        raise AssertionError(f"cli: train_online left {os.listdir(run_dir)}, metrics {m}")
+    log(f"[cli] train_online (td3_critic_aux_policy_aux.yaml, 1 iteration at {cfg['num_envs']} "
+        f"envs, {cfg['updates_per_iter']} updates at batch {cfg['batch_size']}, a ring of "
+        f"{cfg['buffer_size']}): exit 0 in {secs:.1f} s wall (the child's start, imports and "
+        f"set-up included); the iteration: collect {m['rollout_time'] * 1e3:.3f} ms, train_iter "
+        f"{m['train_time'] * 1e3:.3f} ms; launches in the child {counts} ({card})")
+    if mark:
+        mark("cli train_online")
+
+    t0 = time.perf_counter()
+    evals = {}
+    for label, extra in (("policy", []), ("expert", ["--expert"])):
+        evals[label] = start(["-m", "gaddpg_tpu_torch.cli.train_test_offline", "--test",
+                              "--config_file", CLI_CFG, "--pretrained", run_dir, "--index_file",
+                              "ycb", "--num_runs", "1", "--episodes", str(CLI_EPISODES),
+                              "--log_dir", os.path.join(tmp, f"eval_{label}")] + extra)
+    rates = {}
+    for label, proc in evals.items():
+        out, secs = finish(f"train_test_offline {label}", proc, t0)
+        if f"loaded {run_dir} @ step {cfg['updates_per_iter']}" not in out:
+            raise AssertionError(f"cli: the {label} evaluator did not load the checkpoint")
+        rates[label] = float(out.split("overall:")[-1].split()[0])
+        log(f"[cli] train_test_offline --test ({label}, {CLI_EPISODES} episodes: one wave of "
+            f"{cfg['num_envs']} envs on the ycb library): success {rates[label]:.3f}, exit 0 "
+            f"in {secs:.1f} s wall, the two evaluators running at once ({card})")
+    t0 = time.perf_counter()
+    out, secs = finish("show_metrics", start(["-m", "gaddpg_tpu_torch.cli.show_metrics",
+                                              run_dir]), t0)
+    if "critic_loss" not in out:
+        raise AssertionError("cli: show_metrics printed no critic_loss")
+    log(f"[cli] show_metrics: exit 0 in {secs:.1f} s; success rates policy {rates['policy']:.3f}, "
+        f"expert {rates['expert']:.3f} ({card})")
+    if mark:
+        mark("cli evaluators")
+
+
 def _build_library(index, path, where):
     """A child process's work: `index`'s library built on the CPU, saved
     to `path` (the JAX package's .npz layout), its seconds beside it."""
@@ -3770,7 +4332,7 @@ def proc_phase(smoke, gen, build, mark=None):
     then cli.train_goal and the GoalFeature checks."""
     t0 = time.perf_counter()
     lib = smoke.proc_library(build)
-    smoke.per_proc_iter = smoke.loop_path(lib=lib, tag="proc", profile=False)
+    smoke.per_proc_iter = smoke.loop_path(lib=lib, tag="proc", profile=False, warm=False)
     tr, first = smoke.loop_run
     smoke.loop_run = None
     with torch.no_grad():
@@ -3810,6 +4372,13 @@ def main(argv=None) -> int:
     ap.add_argument("--proc", action="store_true",
                     help="run phase 13 (the proc_shapenet:4 library, one TrainConfig() "
                          "iteration on it, cli.train_goal and the GoalFeature checks) alone")
+    ap.add_argument("--image", action="store_true",
+                    help="run phase 14 (the image-mode iteration at 1024 envs, the image agent's "
+                         "timings, the B=8 image env, encoder and updates card vs CPU, the "
+                         "export round trip, record_episode) alone")
+    ap.add_argument("--cli", action="store_true",
+                    help="run phase 15 (train_online, train_test_offline --test with the "
+                         "policy and --expert, show_metrics, as child processes) alone")
     ap.add_argument("--planner", action="store_true",
                     help="run the CHOMP planner alone: phase 8's env path with EnvParams(), "
                          "plan_to_goal card vs CPU, the reset, step and retract times and "
@@ -3862,6 +4431,15 @@ def main(argv=None) -> int:
         if args.proc:
             lib_build = LibraryBuild(PROC_INDEX, "alone")
             proc_phase(Smoke(), torch.Generator(device="cuda").manual_seed(13), lib_build)
+            print(card, flush=True)
+            log(f"[time] whole run {time.perf_counter() - t_start:.1f} s")
+            return 0
+        if args.image or args.cli:
+            smoke = Smoke()
+            if args.image:
+                image_phase(smoke)
+            if args.cli:
+                cli_phase(smoke)
             print(card, flush=True)
             log(f"[time] whole run {time.perf_counter() - t_start:.1f} s")
             return 0
@@ -3942,6 +4520,8 @@ def main(argv=None) -> int:
         mark("loop card vs CPU")
         clutter_phase(smoke, gen, mark)
         proc_phase(smoke, gen, lib_build, mark)
+        image_phase(smoke, mark)
+        cli_phase(smoke, mark)
         line = smoke.kernel_line(totals)
     except Exception:  # report which phase failed, then fail the run
         traceback.print_exc()

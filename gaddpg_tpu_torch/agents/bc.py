@@ -19,8 +19,9 @@ def make_bc_update(cfg: AgentConfig = AgentConfig(), device="cuda"):
     """Build `update(state, batch) -> metrics`, which takes one BC step on
     `state` in place (policy and encoder parameters, the encoder's
     running statistics, their optimizers, update_step). `batch` holds
-    point_state, time, expert_action, goal, return, expert_flags and,
-    when a collision term is on, collide_future, on `device`."""
+    point_state (in image mode image_state), time, expert_action, goal,
+    return, expert_flags and, when a collision term is on, collide_future,
+    on `device`."""
     check_supported(cfg)
     device = resolve_device(device)
 

@@ -1,8 +1,9 @@
 """Agent hyperparameters (defaults = reference experiments/config.py).
 
 The port's own copy of gaddpg_tpu/agents/config.py, field for field, so
-configurations carry over unchanged. The port supports `use_image=False`
-(the other value raises where it would be used) and both compute dtypes.
+configurations carry over unchanged: point clouds through PointNet++ or,
+with `use_image`, RGBDM images through ResNet-18, in either compute
+dtype.
 """
 
 import dataclasses

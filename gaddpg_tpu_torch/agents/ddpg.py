@@ -79,6 +79,12 @@ def extract_feature(feat, point_state, time_batch, action=None, value: bool = Fa
     return out, stats
 
 
+def obs_key(cfg: AgentConfig) -> str:
+    """The batch key of the encoders' input: the RGBDM image in image mode,
+    else the point state (reference: core/agent.py:63-70)."""
+    return "image_state" if cfg.use_image else "point_state"
+
+
 def _masks(batch):
     """Training masks (reference: core/agent.py:224-237)."""
     reward_mask = batch["return"] > 0
@@ -142,7 +148,7 @@ def _policy_losses(cfg: AgentConfig, state: AgentState, batch, m, bc_weight: flo
     PM behaviour cloning (expert rows, collision-discounted) scaled by
     `bc_weight`, the goal aux loss and the collision aux loss.
     -> (pi, stats, bc, aux, collision)."""
-    feature, stats = extract_feature(state.feat, batch["point_state"], batch["time"],
+    feature, stats = extract_feature(state.feat, batch[obs_key(cfg)], batch["time"],
                                      train=True, use_time=cfg.use_time)
     mean, _, aux_pred = state.policy(feature)
     pi = torch.tanh(mean) * state.policy.action_high
@@ -172,8 +178,9 @@ def make_ddpg_update(cfg: AgentConfig = AgentConfig(), device="cuda"):
     running statistics, targets, optimizers, update_step).
 
     `batch` is a dict of tensors on `device`: point_state and
-    next_point_state (B, 4, N), action and expert_action (B, 6), goal
-    (B, 7+), reward, return, terminal, time, expert_flags, perturb_flags
+    next_point_state (B, 4, N) (in image mode image_state and
+    next_image_state (B, 5, H, W) instead), action and expert_action
+    (B, 6), goal (B, 7+), reward, return, terminal, time, expert_flags, perturb_flags
     (B,), and collide_future (B,) when a collision term is on. The target
     smoothing noise takes its raw draws (B, 6), U[0, 1) for the uniform
     noise type, from `noise_draws` if given, else from `generator` (a
@@ -190,14 +197,14 @@ def make_ddpg_update(cfg: AgentConfig = AgentConfig(), device="cuda"):
         noise_scale = cfg.action_noise * _valid_index(
             cfg.noise_ratio_list, _sched_index(step, cfg.mix_milestones))
         feat, opt = state.feat, state.opt
-        ps, time = batch["point_state"], batch["time"]
+        ps, time = batch[obs_key(cfg)], batch["time"]
 
         # ---------------- critic phase ----------------
         value_feat, stats1 = extract_feature(feat, ps, time, action=batch["action"],
                                              value=True, train=True, use_time=cfg.use_time)
         qf1, qf2, critic_aux = state.critic(value_feat)
         with torch.no_grad():  # target value (reference: core/ddpg.py:61-88)
-            next_ps, next_time = batch["next_point_state"], time - 1.0
+            next_ps, next_time = batch["next_" + obs_key(cfg)], time - 1.0
             next_feat, _ = extract_feature(feat, next_ps, next_time, train=True,
                                            use_time=cfg.use_time)
             next_mean, _, _ = state.policy_target(next_feat)
@@ -274,10 +281,10 @@ def make_select_action(cfg: AgentConfig = AgentConfig(), device="cuda"):
     noise_scale=0.0, explore=False) -> (action, aux_pred)`
     (reference: core/agent.py:82-125).
 
-    point_state (B, 4, N) and remain_time (B,) are float32 tensors on
-    `device`, where the state must also lie. With explore=True the noise
-    is drawn from `generator` (a generator of `device`; None = torch's
-    default one)."""
+    point_state (B, 4, N), or in image mode the RGBDM image (B, 5, H, W),
+    and remain_time (B,) are float32 tensors on `device`, where the state
+    must also lie. With explore=True the noise is drawn from `generator` (a
+    generator of `device`; None = torch's default one)."""
     check_supported(cfg)
     device = resolve_device(device)
 

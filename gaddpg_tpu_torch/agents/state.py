@@ -3,10 +3,11 @@
 The JAX `AgentState` is one pytree of parameters, statistics and
 optimizer states. The port's holds modules instead:
 
-- `feat`: the `PointNetFeature` encoders (parameters and BatchNorm
-  running statistics), `policy`: the `GaussianPolicy` head, `critic`: the
-  twin-Q `QNetwork`, all kept in eval mode (the train forward is asked
-  for explicitly, see models/pointnet.py);
+- `feat`: the `PointNetFeature` encoders, or in image mode
+  (`AgentConfig.use_image`) the ResNet-18 `ImageFeature` ones (parameters
+  and BatchNorm running statistics), `policy`: the `GaussianPolicy` head,
+  `critic`: the twin-Q `QNetwork`, all kept in eval mode (the train
+  forward is asked for explicitly, see models/pointnet.py);
 - `policy_target`, `critic_target`: snapshots of the heads, as in the
   reference where the feature extractor has no target copy
   (reference: core/ddpg.py:69-88);
@@ -33,7 +34,10 @@ from torch import nn
 
 from gaddpg_tpu_torch.agents.config import AgentConfig
 from gaddpg_tpu_torch.agents.optim import AdamW
-from gaddpg_tpu_torch.models import GaussianPolicy, GoalFeature, PointNetFeature, QNetwork
+from gaddpg_tpu_torch.models import (
+    GaussianPolicy, GoalFeature, ImageFeature, PointNetFeature, QNetwork, ResNet18Feature,
+)
+from gaddpg_tpu_torch.models.resnet import load_pretrained_encoders
 from gaddpg_tpu_torch.utils.precision import resolve_device
 
 OPTIMIZERS = ("policy", "critic", "encoder", "value_encoder")
@@ -41,7 +45,7 @@ OPTIMIZERS = ("policy", "critic", "encoder", "value_encoder")
 
 @dataclasses.dataclass
 class AgentState:
-    feat: PointNetFeature
+    feat: nn.Module  # PointNetFeature, or ImageFeature in image mode
     policy: GaussianPolicy
     critic: QNetwork = None
     policy_target: GaussianPolicy = None
@@ -81,32 +85,35 @@ def _moved_optimizer(src: AdamW, params, device) -> AdamW:
 
 
 COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+FEATURE_WIDTH = 512  # the encoders' output (PointNet++ at model scale 1, ResNet-18)
 
 
 def check_supported(cfg: AgentConfig):
-    """Raise for configurations the port does not run yet."""
-    if cfg.use_image:
-        raise NotImplementedError("image observations (ResNet-18) are not ported yet")
+    """Raise for configurations the port cannot run."""
+    if cfg.use_image and cfg.feature_dim != FEATURE_WIDTH:
+        raise ValueError(f"feature_dim={cfg.feature_dim}: the ResNet-18 encoder outputs "
+                         f"{FEATURE_WIDTH}")
     if cfg.compute_dtype not in COMPUTE_DTYPES:
         raise ValueError(f"compute_dtype={cfg.compute_dtype!r}: one of {sorted(COMPUTE_DTYPES)}")
 
 
-FEATURE_WIDTH = 512  # the encoder's output at model scale 1
-
-
 def make_modules(cfg: AgentConfig):
     """(feature encoder, policy head, critic) for `cfg`, with torch's
-    default init. The encoders' model scale follows cfg.feature_dim, the
+    default init. In image mode the encoders are ResNet-18 (ImageFeature);
+    else PointNet++, whose model scale follows cfg.feature_dim, the
     heads' input: PointNetEncoder(scale=s) outputs 512 s features, so
     feature_dim = 1024 is the reference's model_scale 2."""
     check_supported(cfg)
-    scale, rest = divmod(cfg.feature_dim, FEATURE_WIDTH)
-    if rest or scale < 1:
-        raise ValueError(f"feature_dim={cfg.feature_dim}: the PointNet++ encoder outputs "
-                         f"a multiple of {FEATURE_WIDTH}")
-    # the encoders' FC Dense layers run in compute_dtype, as
-    # gaddpg_tpu/agents/state.py:55 sets the JAX modules' dtype
-    feat = PointNetFeature(scale=scale, compute_dtype=COMPUTE_DTYPES[cfg.compute_dtype])
+    if cfg.use_image:
+        feat = ImageFeature()
+    else:
+        scale, rest = divmod(cfg.feature_dim, FEATURE_WIDTH)
+        if rest or scale < 1:
+            raise ValueError(f"feature_dim={cfg.feature_dim}: the PointNet++ encoder "
+                             f"outputs a multiple of {FEATURE_WIDTH}")
+        # the encoders' FC Dense layers run in compute_dtype, as
+        # gaddpg_tpu/agents/state.py:55 sets the JAX modules' dtype
+        feat = PointNetFeature(scale=scale, compute_dtype=COMPUTE_DTYPES[cfg.compute_dtype])
     # the optional collision-prediction logit rides as the LAST dim of
     # the policy aux head
     policy = GaussianPolicy(
@@ -116,22 +123,53 @@ def make_modules(cfg: AgentConfig):
         extra_pred_dim=(7 if cfg.policy_aux else 1)
         + (1 if cfg.collision_aux_weight > 0 else 0),
     )
-    critic = QNetwork(num_inputs=cfg.num_inputs, hidden=cfg.hidden_size,
-                      extra_pred_dim=7 if cfg.critic_aux else 0)
+    # image mode appends the action to the value feature (ImageFeature),
+    # so the critic's input is wider (gaddpg_tpu/agents/state.py:152-154)
+    critic = QNetwork(num_inputs=cfg.num_inputs + (cfg.action_dim if cfg.use_image else 0),
+                      hidden=cfg.hidden_size, extra_pred_dim=7 if cfg.critic_aux else 0)
     return feat, policy, critic
 
 
 # -- Flax names ----------------------------------------------------------------
-# Each module's parameters as (tensor, path in the Flax tree, transposed),
-# in one fixed order: the optimizers step them in this order and
-# `from_flax` loads parameters and Adam moments through it. Flax Dense
-# kernels are (in, out), torch Linear weights (out, in).
+# Each module's parameters as (tensor, path in the Flax tree, layout), in
+# one fixed order: the optimizers step them in this order and `from_flax`
+# loads parameters and Adam moments through it. Layout True: a Flax Dense
+# kernel (in, out) of a torch Linear weight (out, in); CONV: a Flax Conv
+# kernel (kh, kw, in, out) of a torch Conv2d weight (out, in, kh, kw).
+CONV = "conv"
 
 def _dense_pairs(linear: nn.Linear, path):
     return [(linear.weight, (*path, "kernel"), True), (linear.bias, (*path, "bias"), False)]
 
 
+def _resnet_pairs(enc: ResNet18Feature):
+    """ResNet18Feature's Flax tree: Conv_0 and BatchNorm_0 (the stem),
+    then BasicBlock_i/{Conv,BatchNorm}_j (j = 2: the projection)."""
+    def conv_bn(conv, bn, path, c, b):
+        return [(conv.weight, (*path, c, "kernel"), CONV), (bn.weight, (*path, b, "scale"), False),
+                (bn.bias, (*path, b, "bias"), False)]
+
+    out = conv_bn(enc.conv1, enc.bn1, (), "Conv_0", "BatchNorm_0")
+    for i, blk in enumerate(enc.blocks()):
+        for j, (conv, bn) in enumerate(blk.convs()):
+            out += conv_bn(conv, bn, (f"BasicBlock_{i}",), f"Conv_{j}", f"BatchNorm_{j}")
+    return out
+
+
+def _resnet_stat_pairs(enc: ResNet18Feature):
+    def stats(bn, path):
+        return [(bn.running_mean, (*path, "mean"), False), (bn.running_var, (*path, "var"), False)]
+
+    out = stats(enc.bn1, ("BatchNorm_0",))
+    for i, blk in enumerate(enc.blocks()):
+        for j, (_, bn) in enumerate(blk.convs()):
+            out += stats(bn, (f"BasicBlock_{i}", f"BatchNorm_{j}"))
+    return out
+
+
 def _encoder_pairs(enc):
+    if isinstance(enc, ResNet18Feature):
+        return _resnet_pairs(enc)
     out = []
     for i, sa in enumerate(enc.sa):
         for j, (d, bn) in enumerate(zip(sa.dense, sa.norms)):
@@ -146,6 +184,8 @@ def _encoder_pairs(enc):
 
 
 def _encoder_stat_pairs(enc):
+    if isinstance(enc, ResNet18Feature):
+        return _resnet_stat_pairs(enc)
     out = []
     for i, sa in enumerate(enc.sa):
         for j, bn in enumerate(sa.norms):
@@ -235,9 +275,9 @@ def make_goal_optimizer(cfg: AgentConfig, goal: GoalFeature) -> AdamW:
 
 def _truncated_normal_(w: torch.Tensor, scale: float, generator: torch.Generator):
     """Flax `variance_scaling(scale, "fan_in", "truncated_normal")` on a
-    torch (out, in) weight: a normal truncated at +-2 std, rescaled so
-    the variance is scale / fan_in."""
-    std = math.sqrt(scale / w.shape[1]) / 0.87962566103423978
+    torch (out, in) or (out, in, kh, kw) weight: a normal truncated at +-2
+    std, rescaled so the variance is scale / fan_in."""
+    std = math.sqrt(scale / w[0].numel()) / 0.87962566103423978
     nn.init.trunc_normal_(w, 0.0, std, -2 * std, 2 * std, generator=generator)
 
 
@@ -291,10 +331,13 @@ def _assemble(cfg, feat, policy, critic, goal, device, update_step=0,
 def create_agent_state(cfg: AgentConfig = AgentConfig(), npoints: int = 1030,
                        generator: torch.Generator = None, device="cuda") -> AgentState:
     """Fresh agent state on `device`, initialised as the JAX package does:
-    kaiming-normal SA Denses, lecun-normal FC Denses, xavier-uniform head
-    Denses (policy and critic), zero biases, BatchNorm scale 1 / bias 0 /
-    mean 0 / var 1; targets equal to the heads; GoalFeature as `init_goal_`
-    (its draws after the others'); optimizers at count 0.
+    kaiming-normal SA Denses, lecun-normal FC Denses (in image mode
+    lecun-normal ResNet convolutions), xavier-uniform head Denses (policy
+    and critic), zero biases, BatchNorm scale 1 / bias 0 / mean 0 / var 1;
+    targets equal to the heads; GoalFeature as `init_goal_` (its draws
+    after the others'); optimizers at count 0. In image mode with
+    `cfg.pretrained_resnet`, both encoders then load that torchvision
+    resnet18 file (`.npz` or `.pth`; models/resnet.py).
 
     `npoints` (the point-state width, 6 anchors + cloud) is checked only:
     the modules do not depend on it. `generator` is a CPU generator
@@ -308,6 +351,10 @@ def create_agent_state(cfg: AgentConfig = AgentConfig(), npoints: int = 1030,
     feat, policy, critic = make_modules(cfg)
     with torch.no_grad():
         for enc in (feat.encoder, feat.value_encoder):
+            if cfg.use_image:  # Flax Conv's default: lecun-normal
+                for conv in [enc.conv1] + [c for b in enc.blocks() for c, _ in b.convs()]:
+                    _truncated_normal_(conv.weight, 1.0, generator)
+                continue
             for sa in enc.sa:
                 for d in sa.dense:
                     _truncated_normal_(d.weight, 2.0, generator)
@@ -320,7 +367,19 @@ def create_agent_state(cfg: AgentConfig = AgentConfig(), npoints: int = 1030,
             d.bias.zero_()
         _init_heads_(critic, generator)
     goal = init_goal_(GoalFeature(), generator)
+    if cfg.use_image and cfg.pretrained_resnet:
+        load_pretrained_encoders(feat, _read_state_dict(cfg.pretrained_resnet))
     return _assemble(cfg, feat, policy, critic, goal, device)
+
+
+def _read_state_dict(path: str):
+    """A torchvision-layout state dict from disk: an .npz with the key
+    names, or a torch .pth (a bare state dict or one under "state_dict")."""
+    if path.endswith(".npz"):
+        with np.load(path) as data:
+            return dict(data)
+    sd = torch.load(path, map_location="cpu")
+    return sd.get("state_dict", sd)
 
 
 def _leaf(tree, path):
@@ -329,9 +388,11 @@ def _leaf(tree, path):
     return tree
 
 
-def _copy_(dst: torch.Tensor, src, transpose: bool = False):
+def _copy_(dst: torch.Tensor, src, transpose=False):
     src = torch.tensor(np.asarray(src, dtype=np.float32))
-    if transpose:
+    if transpose == CONV:
+        src = src.permute(3, 2, 0, 1)
+    elif transpose:
         src = src.t()
     if tuple(src.shape) != tuple(dst.shape):
         raise ValueError(f"shape {tuple(src.shape)} does not fit {tuple(dst.shape)}")
@@ -373,8 +434,10 @@ def from_flax(feat_params, feat_stats, policy_params, cfg: AgentConfig = AgentCo
     (e.g. `jax.tree_util.tree_map(np.asarray, state.feat_params)`).
 
     feat: `{encoder, value_encoder}/SetAbstraction_{0,1,2}/{Dense,BatchNorm}_{0,1,2}`
-    and `Dense_{0,1}`, `BatchNorm_{0,1}` for the FC trunk; statistics
-    under the same names with `mean`/`var`. policy (and policy_target):
+    and `Dense_{0,1}`, `BatchNorm_{0,1}` for the FC trunk, or in image
+    mode `{encoder, value_encoder}/Conv_0`, `BatchNorm_0` (the stem) and
+    `BasicBlock_{0..7}/{Conv,BatchNorm}_{0,1(,2)}`; statistics under the
+    same names with `mean`/`var`. policy (and policy_target):
     `Dense_0..Dense_4` = fc1, fc2, mean, extra, log_std. critic (and
     critic_target): `q1_l1 .. aux_out`.
 

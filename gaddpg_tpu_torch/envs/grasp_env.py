@@ -19,11 +19,17 @@ World frame: robot base at the origin on the table plane (z = 0);
 objects spawn at x 0.5-0.6, y +-0.125 (reference:
 env/panda_gripper_hand_camera.py:32, env/panda_scene.py:1000-1001).
 
+With `use_image` every observation also carries an RGBDM image
+(`render_rgbdm`, at the camera's resolution); with `domain_rand` its look
+is randomised per episode (albedo, occluder tint, light gain, from the
+episode's `vis_seed`) and per frame (pixel noise).
+
 Randomness: `reset` and the steps draw from a `torch.Generator`, or take
 the exact draws as tensors (`draws=`), so the JAX package's `jax.random`
-draws can be injected for parity. Image observations (`use_image`,
-`domain_rand`) are not ported: `PandaGraspEnv` raises NotImplementedError
-for them.
+draws can be injected for parity. The JAX package derives an episode's
+look from `PRNGKey(vis_seed)`; the port derives it from `vis_seed` by a
+counter hash (`domain_look`), the same on every device, and parity tests
+inject JAX's look as draws.
 """
 
 import dataclasses
@@ -51,7 +57,7 @@ from gaddpg_tpu_torch.physics.types import (
 )
 from gaddpg_tpu_torch.render.camera import (
     CameraParams, box_zdepth, depth_to_points, plane_zdepth, render_depth_points,
-    spheres_zdepth, visible_target_depth,
+    render_rgbdm, spheres_zdepth, visible_target_depth,
 )
 from gaddpg_tpu_torch.render.pointcloud import (
     OBSTACLE_LABEL, PointCloudState, accumulate_points, build_point_state, create_pc_state,
@@ -67,6 +73,36 @@ from gaddpg_tpu_torch.utils.precision import f32_matmuls, resolve_device
 T_CAM = ((1.0, 0.0, 0.0, 0.036), (0.0, 1.0, 0.0, 0.0), (0.0, 0.0, 1.0, 0.036),
          (0.0, 0.0, 0.0, 1.0))
 TCP_OFFSET = (0.0, 0.0, 0.13)  # hand origin -> grasp point, hand frame
+# domain randomisation's ranges (gaddpg_tpu/envs/grasp_env.py:330-340):
+# albedo, occluder tint and light gain per episode, pixel noise per frame
+ALBEDO_RANGE = (0.1, 0.95)
+OCCLUDER_RANGE = (0.15, 0.85)
+LIGHT_GAIN_RANGE = (0.6, 1.4)
+IMAGE_NOISE_STD = 0.02
+VIS_SEED_HIGH = 2**31 - 1  # vis_seed in [0, int32 max), as the JAX package draws it
+_M32 = 0xFFFFFFFF
+
+
+def _hash_uniforms(seed, count: int):
+    """(B, count) uniforms in [0, 1) from integer seeds (B,): a counter
+    hash (two rounds of xor-shift-multiply by 0x45d9f3b, mod 2^32) of
+    seed * count + k. Integer arithmetic only, so every device gives the
+    same values; each product stays below 2^59."""
+    x = ((seed.to(torch.int64)[:, None] & _M32) * count
+         + torch.arange(count, device=seed.device)) & _M32
+    for _ in range(2):
+        x = ((x ^ (x >> 16)) * 0x45D9F3B) & _M32
+    x = x ^ (x >> 16)
+    return (x.to(torch.float64) / 2.0**32).to(torch.float32)
+
+
+def domain_look(vis_seed):
+    """An episode's randomised look from its seeds (B,): (albedo (B, 3),
+    occluder colour (B, 3), light gain (B,)), uniform in their ranges."""
+    u = _hash_uniforms(vis_seed, 7)
+    span = lambda lo_hi, v: lo_hi[0] + (lo_hi[1] - lo_hi[0]) * v  # noqa: E731
+    return (span(ALBEDO_RANGE, u[:, 0:3]), span(OCCLUDER_RANGE, u[:, 3:6]),
+            span(LIGHT_GAIN_RANGE, u[:, 6]))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -106,8 +142,11 @@ class EnvParams:
     step_ik_iters: int = 10
     settle_substeps: int = 200
     termination_heuristics: bool = True
-    use_image: bool = False              # not ported
-    domain_rand: bool = False            # not ported
+    use_image: bool = False              # emit RGBDM image observations
+    # per-episode visual domain randomisation of the image: target albedo,
+    # occluder tint (a table-texture proxy), light gain, and per-frame
+    # pixel noise (reference: env/panda_scene.py:599-618, 680-690)
+    domain_rand: bool = False
     lift_height: float = 0.08            # success (reference: env/panda_scene.py:877)
     fall_height: float = 0.03            # failure (reference: env/panda_scene.py:868)
     retract_lift_steps: int = 10
@@ -137,6 +176,9 @@ class EnvState:
     plan: torch.Tensor             # (B, PLAN_STEPS, 7) the planner's joint waypoints
     plan_ok: torch.Tensor          # (B,) bool
     plan_step: torch.Tensor        # (B,) int32 progress along the plan
+    # the episode's visual-randomisation seed (domain_rand; 0 without),
+    # fixed for the episode like the reference's per-episode textures
+    vis_seed: torch.Tensor         # (B,) int64
 
     def to(self, device) -> "EnvState":
         return map_tensors(self, lambda t: t.to(device))
@@ -149,6 +191,7 @@ class Observation:
     joint_pos: torch.Tensor     # (B, 9)
     ef_pose: torch.Tensor       # (B, 4, 4) hand in world
     goal_pose: torch.Tensor     # (B, 7) [q, t] hand -> goal
+    image: torch.Tensor         # (B, 5, H, W) RGBDM with use_image, else (B, 5, 1, 1) zeros
 
 
 def _tensor(x, device, dtype=torch.float32):
@@ -171,8 +214,8 @@ def state_from_numpy(tree, device="cuda") -> EnvState:
     """A port EnvState from the numpy leaves of a JAX EnvState given as a
     nested dict (`dataclasses.asdict` of the JAX state with every leaf
     through `np.asarray`), reservoir, plan and clutter bodies included
-    (a tree without clutter fields gives K = 0). The image field is
-    ignored. Lands on the card unless `device="cpu"`, and raises without
+    (a tree without clutter fields gives K = 0) and the visual seed.
+    Lands on the card unless `device="cpu"`, and raises without
     one, as `from_flax` does."""
     device = resolve_device(device)
     t = lambda x, dtype=torch.float32: _tensor(x, device, dtype)
@@ -208,6 +251,7 @@ def state_from_numpy(tree, device="cuda") -> EnvState:
         plan=t(tree["plan"]),
         plan_ok=t(tree["plan_ok"], torch.bool),
         plan_step=t(tree["plan_step"], torch.int32),
+        vis_seed=t(tree["vis_seed"], torch.int64),
     )
 
 
@@ -216,8 +260,6 @@ class PandaGraspEnv:
     works on a batch of envs and leaves its inputs unchanged."""
 
     def __init__(self, params: EnvParams, lib: ObjectLibrary, device="cuda"):
-        if params.use_image or params.domain_rand:
-            raise NotImplementedError("image observations are not ported yet")
         self.p = params
         self.device = resolve_device(device)
         self.lib = lib.to(self.device)
@@ -312,11 +354,40 @@ class PandaGraspEnv:
         dev = self.device if generator is None else generator.device
         return torch.rand(shape, generator=generator, device=dev).to(self.device)
 
+    def _randn(self, generator, shape):
+        """Standard normals, drawn as `_rand` draws its uniforms."""
+        dev = self.device if generator is None else generator.device
+        return torch.randn(shape, generator=generator, device=dev).to(self.device)
+
+    def _image(self, state: EnvState, cam_inv, surf_w, occ, generator, draws):
+        """The RGBDM images (B, 5, H, W): a pseudo-albedo per object index;
+        under domain_rand the episode's look (`domain_look(vis_seed)`, or
+        draws' "albedo", "occluder_color", "light_gain") and the frame's
+        noise (draws' "image_noise" (B, 3, H, W), else the generator)."""
+        p, dev = self.p, self.device
+        oi = state.obj_idx.to(torch.float32)[:, None]
+        albedo = 0.35 + 0.6 * torch.abs(torch.sin(oi * const((1.7, 2.9, 4.3), dev)
+                                                  + const((0.0, 2.0, 4.0), dev)))
+        rand = {}
+        if p.domain_rand:
+            if draws is not None and "albedo" in draws:
+                look = [draws[k].to(dev) for k in ("albedo", "occluder_color", "light_gain")]
+            else:
+                look = domain_look(state.vis_seed)
+            albedo, occluder, gain = look
+            b, h, w = albedo.shape[0], p.camera.height, p.camera.width
+            noise = (draws["image_noise"].to(dev) if draws is not None
+                     else self._randn(generator, (b, 3, h, w)))
+            rand = dict(occluder_color=occluder, light_gain=gain, noise=noise,
+                        noise_std=IMAGE_NOISE_STD)
+        return render_rgbdm(p.camera, cam_inv, surf_w, albedo, occ_depth=occ, **rand)
+
     def _observe_impl(self, state: EnvState, generator=None, draws=None):
         """(state with the new reservoir, observation, the occlusion-culled
         target depth images that _termination reads). `draws`: {"keep_u":
-        (B, new_points_per_step), "idx": (B, uniform_num_pts)} and, with
-        clutter, "clutter_keep_u": (B, clutter_points_per_step)."""
+        (B, new_points_per_step), "idx": (B, uniform_num_pts)}, with
+        clutter "clutter_keep_u": (B, clutter_points_per_step), and under
+        domain_rand "image_noise" (B, 3, H, W) (`_image`)."""
         p = self.p
         b = state.obj_idx.shape[0]
         hand = self._hand(state)
@@ -358,11 +429,15 @@ class PandaGraspEnv:
             n = torch.clamp(num_valid(pc), min=1)[:, None]
             idx = torch.minimum((u * n).to(torch.int64), n - 1)
         point_state, n_pts = build_point_state(pc, idx, se3_inverse(hand))
+        if p.use_image:
+            image = self._image(state, cam_inv, surf_w, occ, generator, draws)
+        else:
+            image = torch.zeros((b, 5, 1, 1), device=self.device)
 
         goal_rel = se3_inverse(hand) @ self._goal_world(state)
         obs = Observation(point_state=point_state, num_points=n_pts,
                           joint_pos=state.phys.arm.q, ef_pose=hand,
-                          goal_pose=pack_pose_rot_first(goal_rel))
+                          goal_pose=pack_pose_rot_first(goal_rel), image=image)
         return dataclasses.replace(state, pc=pc), obs, vis_depth
 
     # ------------------------------------------------------------------
@@ -381,7 +456,7 @@ class PandaGraspEnv:
         return torch.clamp((self._rand(generator, shape) * n).to(torch.int64), max=n - 1)
 
     @f32_matmuls
-    def sample_scene(self, batch: int, generator=None, draws=None):
+    def sample_scene(self, batch: int, generator=None, draws=None, obj_idx=None):
         """Randomise `batch` scenes (reference: env/panda_scene.py:995-1035,
         777-827): a yawed object in the spawn box and an arm start on a
         sphere shell around it, looking at it, solved with IK from the
@@ -392,8 +467,9 @@ class PandaGraspEnv:
         `draws` replaces the random values: a dict of (B,) tensors x, y,
         yaw, theta, phi, r, (B, 3) jitter and obj_idx, and with clutter
         (B, 9) perm (a permutation of the cells), (B, K + 1, 2)
-        cell_jitter, (B, K) clutter_idx and clutter_yaw. Returns a scene
-        dict for `reset_scene`."""
+        cell_jitter, (B, K) clutter_idx and clutter_yaw. `obj_idx` (an int
+        or (B,)) fixes the target object in place of the drawn one.
+        Returns a scene dict for `reset_scene`."""
         p, dev = self.p, self.device
         k = p.num_clutter
         if draws is not None:
@@ -410,6 +486,8 @@ class PandaGraspEnv:
                          cell_jitter=u(-p.clutter_jitter, p.clutter_jitter, (batch, k + 1, 2)),
                          clutter_idx=self._rand_index(generator, (batch, k)),
                          clutter_yaw=u(-math.pi, math.pi, (batch, k)))
+        if obj_idx is not None:
+            d["obj_idx"] = torch.as_tensor(obj_idx, device=dev).expand(batch)
         obj_idx = d["obj_idx"].to(torch.int64)
         yaw = d["yaw"]
         zero = torch.zeros_like(yaw)
@@ -469,8 +547,9 @@ class PandaGraspEnv:
         `settle_substeps` substeps of the batched physics (one K7 launch),
         jointly with the clutter bodies when there are any (physics/multi.py)
         so that initial penetrations relax before step 0. `draws`: the
-        first observation's, as `_observe_impl` takes them. Returns (state,
-        obs)."""
+        first observation's, as `_observe_impl` takes them, and under
+        domain_rand "vis_seed" (B,), the episode's visual seed (else drawn
+        from `generator`; 0 without domain_rand). Returns (state, obs)."""
         p, dev = self.p, self.device
         t = lambda k, dtype=torch.float32: _tensor(scene[k], dev, dtype)
         obj_idx = t("obj_idx", torch.int64)
@@ -508,6 +587,12 @@ class PandaGraspEnv:
                                      self.lib.mass[obj_idx], self.lib.inertia[obj_idx],
                                      substeps=p.settle_substeps)
         false = torch.zeros(b, dtype=torch.bool, device=dev)
+        vis_seed = torch.zeros(b, dtype=torch.int64, device=dev)
+        if p.domain_rand:
+            gdev = dev if generator is None else generator.device
+            vis_seed = (draws["vis_seed"].to(dev, torch.int64) if draws is not None else
+                        torch.randint(0, VIS_SEED_HIGH, (b,), generator=generator,
+                                      device=gdev).to(dev))
         state = EnvState(
             phys=phys, pc=create_pc_state(b, p.pc_capacity, dev), obj_idx=obj_idx,
             env_step=torch.zeros(b, dtype=torch.int32, device=dev),
@@ -520,6 +605,7 @@ class PandaGraspEnv:
             plan=q[:, None, :7].repeat(1, PLAN_STEPS, 1),
             plan_ok=torch.ones(b, dtype=torch.bool, device=dev),
             plan_step=torch.zeros(b, dtype=torch.int32, device=dev),
+            vis_seed=vis_seed,
         )
         state = self._update_goal(state)
         if p.use_planner:
@@ -544,15 +630,16 @@ class PandaGraspEnv:
         return dataclasses.replace(state, valid_scene=valid), obs
 
     @f32_matmuls
-    def reset(self, batch: int, generator=None, draws=None):
+    def reset(self, batch: int, generator=None, draws=None, obj_idx=None):
         """Randomised reset of `batch` envs: up to `reset_tries` scene
         candidates, the first valid one kept per env
         (reference: core/train_online.py:180-188). `draws`, if given, is a
-        list of one (scene draws, observation draws) pair per try."""
+        list of one (scene draws, observation draws) pair per try;
+        `obj_idx` fixes the target object (`sample_scene`)."""
         state = obs = None
         for r in range(max(self.p.reset_tries, 1)):
             scene_d, obs_d = (None, None) if draws is None else draws[r]
-            scene = self.sample_scene(batch, generator, scene_d)
+            scene = self.sample_scene(batch, generator, scene_d, obj_idx)
             st, ob = self.reset_scene(scene, generator, obs_d)
             if state is None:
                 state, obs = st, ob

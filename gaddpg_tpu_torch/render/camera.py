@@ -1,5 +1,5 @@
 """Point-splat depth camera with analytic occluders (counterpart of
-gaddpg_tpu/render/camera.py, without the image-mode `render_rgbdm`).
+gaddpg_tpu/render/camera.py).
 
 Camera model of the reference wrist camera: 90-degree FOV, near 0.035 /
 far 2.0 (reference: env/panda_scene.py:838-847); +z optical axis forward,
@@ -125,6 +125,45 @@ def spheres_zdepth(cam: CameraParams, cam_pose, centers, radii):
     hit = (disc > 0.0) & (t > cam.near) & (t < cam.far)
     t = torch.amin(torch.where(hit, t, math.inf), dim=-1)
     return t.reshape(-1, cam.height, cam.width)
+
+
+def render_rgbdm(cam: CameraParams, cam_pose_inv, points_world, albedo, valid=None,
+                 occ_depth=None, occluder_color=None, light_gain=None, noise=None,
+                 noise_std: float = 0.0):
+    """RGBDM images (B, 5, H, W) of the target's surface points: RGB in
+    [0, 1], metric depth, mask with 0 = target pixels, 1 = background
+    (reference: env/panda_scene.py:433-437, 1163-1176).
+
+    RGB is a proxy shading, the albedo (B, 3) over target pixels and the
+    occluder colour elsewhere, scaled by 1 / (1 + 2 depth): the image's
+    input contract, not photometric fidelity. `occ_depth` (B, H, W), +inf
+    where clear, carries the scene's occluders: where one is nearer than
+    the target by more than OCCLUSION_EPS, the pixel is background and
+    shows the occluder's depth (reference: env/panda_scene.py:414-436).
+
+    Domain randomisation (reference: env/panda_scene.py:599-618, 680-690):
+    `occluder_color` (B, 3) replaces the occluder grey 0.5, `light_gain`
+    (B,) scales the shading, and `noise` (B, 3, H, W) standard normal
+    draws times `noise_std` are added to RGB before the clip. Depth and
+    mask stay clean."""
+    depth_t = render_depth_points(cam, cam_pose_inv, points_world, valid)
+    occ = torch.full_like(depth_t, math.inf) if occ_depth is None else occ_depth
+    t_hit = depth_t > 0
+    t_vis = t_hit & (depth_t <= occ + OCCLUSION_EPS)
+    scene = torch.minimum(torch.where(t_hit, depth_t, math.inf), occ)
+    hit = torch.isfinite(scene)
+    scene = torch.where(hit, scene, 0.0)
+    shade = torch.where(hit, 1.0 / (1.0 + 2.0 * scene), 0.0)
+    if light_gain is not None:
+        shade = shade * light_gain[:, None, None]
+    oc = (torch.full_like(albedo, 0.5) if occluder_color is None else occluder_color)
+    color = torch.where(t_vis[:, None], albedo[:, :, None, None], oc[:, :, None, None])
+    rgb = color * shade[:, None]
+    if noise is not None:
+        rgb = rgb + noise_std * noise
+    rgb = torch.clamp(rgb, 0.0, 1.0)
+    mask = torch.where(t_vis, 0.0, 1.0)
+    return torch.cat([rgb, scene[:, None], mask[:, None]], dim=1)
 
 
 def visible_target_depth(cam: CameraParams, cam_pose_inv, points_world, valid=None,

@@ -51,12 +51,16 @@ class Trainer:
         self.update = (make_bc_update if cfg.policy == "BC"
                        else make_ddpg_update)(cfg.agent, self.device)
 
+        # image mode: the ring stores the RGBDM frames too (in bfloat16)
+        cam = self.env.p.camera
+        img_shape = (5, cam.height, cam.width) if cfg.agent.use_image else None
         self.buffer = replay.create_buffer(cfg.buffer_size, num_points=num_pts,
-                                           device=self.device)
+                                           image_shape=img_shape, device=self.device)
         self.online_buffer = None
         if cfg.onpolicy and cfg.online_buffer_size:
             self.online_buffer = replay.create_buffer(cfg.online_buffer_size,
-                                                      num_points=num_pts, device=self.device)
+                                                      num_points=num_pts, image_shape=img_shape,
+                                                      device=self.device)
         self.metrics = MetricLogger(cfg.output_dir)
         self.obj_perf = ObjectPerformance(self.lib.names)
 
@@ -146,12 +150,15 @@ class Trainer:
 
     # ------------------------------------------------------------------
     def run(self, max_iters=None, log_every=None):
-        """Full online loop (reference: core/train_online.py:531-574)."""
+        """Full online loop (reference: core/train_online.py:531-574).
+        Scalars go to metrics.jsonl every `log_every` iterations (default
+        cfg.log_interval) and at the last of `max_iters`."""
         cfg = self.cfg
         log_every = log_every or cfg.log_interval
         it = 0
         while self.update_step < cfg.max_epoch:
             it += 1
+            last = bool(max_iters) and it >= max_iters
             t0 = time.time()
             roll_stats = self.collect()
             t_roll = time.time() - t0
@@ -159,7 +166,7 @@ class Trainer:
             train_stats = self.train_iter()
             t_train = time.time() - t0
 
-            if it % log_every == 0:
+            if it % log_every == 0 or last:
                 scalars = dict(roll_stats)
                 scalars.update(train_stats)
                 scalars.update(rollout_time=t_roll, train_time=t_train,
@@ -167,7 +174,7 @@ class Trainer:
                 self.metrics.log(self.update_step, scalars)
             if self.update_step and self.update_step % cfg.save_interval == 0:
                 save_agent(self.agent_state, cfg.output_dir)
-            if max_iters and it >= max_iters:
+            if last:
                 break
         save_agent(self.agent_state, cfg.output_dir)
         return self.obj_perf

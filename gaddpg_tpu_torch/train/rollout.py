@@ -10,7 +10,9 @@ gaddpg_tpu/train/rollout.py; reference: core/train_online.py:207-321).
   perturbation steps flagged perturb (excluded from the critic loss);
 - envs freeze once done; after the horizon every env runs the retract
   and the lift reward lands on its last valid transition, with the
-  discounted-return backfill done at buffer insert.
+  discounted-return backfill done at buffer insert;
+- in image mode (`AgentConfig.use_image`) the policy reads the RGBDM
+  observation and the episodes carry it as `image_state`.
 
 The JAX package runs the horizon as one `lax.scan`; here it is a Python
 loop over the T steps, each step one batched env step, with the same
@@ -48,8 +50,6 @@ class RolloutWorker:
         if mesh is not None:
             raise NotImplementedError("a device mesh (multi-GPU data parallel) is not ported "
                                       "yet; pass mesh=None")
-        if agent_cfg.use_image:
-            raise NotImplementedError("image observations are not ported yet")
         self.device = resolve_device(device)
         if env.device != self.device:
             raise ValueError(f"env is on {env.device}, the rollout on {self.device}")
@@ -57,6 +57,11 @@ class RolloutWorker:
         self.cfg = train_cfg
         self.agent_cfg = agent_cfg
         self.select_action = make_select_action(agent_cfg, self.device)
+
+    def _policy_input(self, obs):
+        """The policy's observation: the RGBDM image in image mode, else
+        the point state (reference: experiments/config.py:105)."""
+        return obs.image if self.agent_cfg.use_image else obs.point_state
 
     # ------------------------------------------------------------------
     def _rand(self, generator, shape):
@@ -164,7 +169,7 @@ class RolloutWorker:
                 states = _where(replan, env.replan(states), states)
         expert_a = env.expert_action(states)
         remain = torch.clamp(plan_len - t_f, min=1.0)
-        policy_a, _ = self.select_action(agent_state, obs.point_state, remain)
+        policy_a, _ = self.select_action(agent_state, self._policy_input(obs), remain)
         policy_a = policy_a + exploration_noise(
             noise_u, self.agent_cfg.action_noise * ctx["noise_scale"],
             self.agent_cfg.noise_type)
@@ -205,6 +210,10 @@ class RolloutWorker:
             "grasp": zeros,
             "target_idx": states.obj_idx.to(torch.float32),
         }
+        if self.agent_cfg.use_image:
+            # in the ring's bfloat16 already: the insert would round it so,
+            # and the horizon's frames take half the memory
+            trans["image_state"] = obs.image.to(torch.bfloat16)
         return states, obs_next, done | new_done, trans, keep
 
     # ------------------------------------------------------------------
@@ -240,7 +249,7 @@ class RolloutWorker:
                 action = env.expert_action(states)
             else:
                 remain = torch.clamp(plan_len - float(t), min=1.0)
-                action, _ = self.select_action(agent_state, obs.point_state, remain)
+                action, _ = self.select_action(agent_state, self._policy_input(obs), remain)
             env_draws = None if draws is None else draws["steps"][t]["env"]
             new_states, new_obs, _, new_done, _ = env.step_batched(states, action, generator,
                                                                    env_draws)

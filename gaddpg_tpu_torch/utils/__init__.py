@@ -1,1 +1,1 @@
-"""Precision and device helpers."""
+"""Precision and device helpers, rollout videos and episode recording."""

@@ -78,9 +78,9 @@ def test_unported_options_and_device():
     lib = assets.box_asset(0.05, 0.05, 0.14)
     assert PandaGraspEnv(EnvParams(), lib, device="cpu").p.use_planner  # the default: CHOMP
     assert PandaGraspEnv(EnvParams(num_clutter=2), lib, device="cpu").p.num_clutter == 2
+    # image mode is ported (tests/test_torch_image_env.py)
     for params in (EnvParams(use_image=True), EnvParams(domain_rand=True)):
-        with pytest.raises(NotImplementedError):
-            PandaGraspEnv(params, lib, device="cpu")
+        assert PandaGraspEnv(params, lib, device="cpu").p == params
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             PandaGraspEnv(EnvParams(use_planner=False), lib)

@@ -39,7 +39,7 @@ from gaddpg_tpu_torch.agents import (
 from gaddpg_tpu_torch.agents import losses
 from gaddpg_tpu_torch.agents.optim import AdamW
 from gaddpg_tpu_torch.agents.state import (
-    _critic_pairs, _encoder_pairs, _encoder_stat_pairs, _pairs, _policy_pairs,
+    CONV, _critic_pairs, _encoder_pairs, _encoder_stat_pairs, _pairs, _policy_pairs,
 )
 from gaddpg_tpu_torch.geometry.gripper import HAND_FINGER_POINTS
 from gaddpg_tpu_torch.models import QNetwork
@@ -436,7 +436,9 @@ def _check_moves(port, before, after, cfg, bounds):
     for name, (threshold, fraction) in bounds.items():
         lr, off, total = lrs[name], 0, 0
         for t, path, transpose in pairs[name]:
-            got = t.detach().numpy().T if transpose else t.detach().numpy()
+            got = t.detach().numpy()
+            # Flax layout: Dense kernels transposed, Conv kernels (kh, kw, in, out)
+            got = got.transpose(2, 3, 1, 0) if transpose == CONV else got.T if transpose else got
             want, prev = _leaf(want_tree[name], path), _leaf(prev_tree[name], path)
             if _bn_fed_bias(name, path):
                 for side in (got, want):

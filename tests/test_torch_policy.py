@@ -238,8 +238,11 @@ def test_policy_runner_matches_jax(jax_state, port_state):
 
 
 def test_unported_options_raise(port_state):
-    with pytest.raises(NotImplementedError):
-        create_agent_state(AgentConfig(use_image=True), device="cpu")
+    # image mode is ported (tests/test_torch_image_agent.py); its ResNet-18
+    # encoders output 512 features, so no other feature_dim
+    assert create_agent_state(AgentConfig(use_image=True), device="cpu").feat.value_encoder
+    with pytest.raises(ValueError, match="ResNet-18"):
+        create_agent_state(AgentConfig(use_image=True, feature_dim=1024), device="cpu")
     with pytest.raises(ValueError, match="compute_dtype"):
         make_select_action(AgentConfig(compute_dtype="float16"), device="cpu")
     # bfloat16 is ported: the encoders' FC Dense layers run in it

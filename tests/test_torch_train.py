@@ -460,9 +460,10 @@ def test_unported_options_raise(tmp_path):
     tr = Trainer(dryrun_config(tmp_path), lib=lib, device="cpu")
     with pytest.raises(NotImplementedError, match="mesh"):
         RolloutWorker(tr.env, tr.cfg.agent, tr.cfg, mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="image"):
-        RolloutWorker(tr.env, dataclasses.replace(tr.cfg.agent, use_image=True), tr.cfg,
-                      device="cpu")
+    # image mode is ported (tests/test_torch_image_agent.py)
+    worker = RolloutWorker(tr.env, dataclasses.replace(tr.cfg.agent, use_image=True), tr.cfg,
+                           device="cpu")
+    assert worker.agent_cfg.use_image
 
 
 def test_trainer_defaults_to_the_card(tmp_path):

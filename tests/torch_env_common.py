@@ -143,8 +143,8 @@ def env_observe_draws(jenv, obs_keys, count):
 
 
 def jax_state(state):
-    """A JAX EnvState (vis_seed 0) from a port EnvState on the CPU: the
-    inverse of `port_state`."""
+    """A JAX EnvState from a port EnvState on the CPU: the inverse of
+    `port_state`."""
     from gaddpg_tpu.envs.grasp_env import EnvState as JaxEnvState
     from gaddpg_tpu.physics import types as jtypes
     from gaddpg_tpu.render.pointcloud import PointCloudState as JaxPointCloudState
@@ -156,7 +156,7 @@ def jax_state(state):
     ph, arm, obj = state.phys, state.phys.arm, state.phys.obj
     fields = {f.name: j(getattr(state, f.name), np.int32 if getattr(state, f.name).dtype
                         in (torch.int64, torch.int32) else None)
-              for f in dataclasses.fields(state) if f.name not in ("phys", "pc")}
+              for f in dataclasses.fields(state) if f.name not in ("phys", "pc", "vis_seed")}
     return JaxEnvState(
         phys=jtypes.PhysicsState(
             arm=jtypes.ArmState(q=j(arm.q), qd=j(arm.qd), q_target=j(arm.q_target)),
@@ -165,7 +165,7 @@ def jax_state(state):
             contact_force=j(ph.contact_force), gripper_contact=j(ph.gripper_contact)),
         pc=JaxPointCloudState(points=j(state.pc.points), labels=j(state.pc.labels),
                               count=j(state.pc.count), cursor=j(state.pc.cursor)),
-        vis_seed=jnp.zeros(state.obj_idx.shape[0], jnp.int32), **fields)
+        vis_seed=j(state.vis_seed, np.int32), **fields)
 
 
 def point_state_mismatch(port_ps, jax_ps, tol=1e-4):
