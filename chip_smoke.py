@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--scale2-seeds A-B [--plain-on-card K5,K6]]
                           [--k5-scale EPS,...] [--loop] [--planner] [--clutter] [--proc]
-                          [--image] [--cli]
+                          [--image] [--cli] [--dp]
 
 Phases, each of which must pass:
   1. build the CUDA kernels of K1 FPS, K2 ball query, K3 eval SA
@@ -124,7 +124,7 @@ Phases, each of which must pass:
      `reset` and `retract_batched`, and K7 against its plain version and
      its bound (CUDA events) at n = 75 (B = 1024 and 64) and n = 200 (K7's
      live states come from a goal-servo rollout); `plan_to_goal` on the
-     card against the CPU at B = 8 and 1024 on the reset's planner inputs
+     card against the CPU at B = 8 and 256 on the reset's planner inputs
      (PLAN_TOL_CARD's rule: each plan within 1e-3 rad of the CPU's with
      `ok` equal, or within 4 times the CPU's own spread under one-ulp
      nudges of all its inputs, or on another near-tied IK branch with the
@@ -193,8 +193,9 @@ Phases, each of which must pass:
      counted (K1-K4 at every step, K7 never: physics/multi.py steps the
      clutter; K1, K2, K5, K6 in the updates) and timed, split into reset
      (its planner), steps, DAgger replans, retract, insert and train_iter,
-     env steps/s, and one step and update profiled for the device's busy
-     and idle share; then the clutter path at B=8 on the
+     env steps/s, and (with --clutter alone; the full run leaves it out,
+     for time) one step and update profiled for the device's busy and
+     idle share; then the clutter path at B=8 on the
      card and on the CPU (`clutter_card_vs_cpu` says by which rules: phase
      9's with the clutter bodies, near-tied grasp goals, phase 8's planner
      rule with the verdict's own flips) and generate_scenes ->
@@ -244,7 +245,28 @@ Phases, each of which must pass:
      the child counts the kernels' launches), then `train_test_offline
      --test --pretrained` on its checkpoint for 256 episodes with the
      policy and with --expert (at once), then `show_metrics` on the run.
-     --cli runs this phase alone (--image --cli both).
+     --cli runs this phase alone (--image --cli both);
+ 16. data-parallel training (`gaddpg_tpu_torch.parallel`): 2 ranks share
+     the card over gloo, their collectives staged through the host (NCCL
+     refuses two ranks on one device), started by `parallel.launch`
+     with a timeout. On the ranks: K5 and K6 split at the reduction
+     (`mesh=`) at the learner's shapes (policy SA1, value SA1, SA2, SA3
+     at 256 x 1030, scale 1 and 2), each rank on half the rows, against
+     the whole-batch kernel call here and against the plain version with
+     the same reduction on the card (phase 2's bounds, gradients
+     included, two calls bit-identical); the sharded DDPG and BC updates
+     at 256 x 1030 from a state with carried Adam moments, and the same
+     on 1 rank over NCCL, against the update without a mesh on the card
+     (phase 6's update rule; every rank's state bit-identical; times and
+     the collectives' share); one TrainConfig() iteration at 1024 envs
+     (512 a rank, EnvParams() with the planner, 4 updates), counted
+     (each rank's launches equal to phase 11's per-iteration counts) and
+     timed (the rank's first, cold iteration: the collect's split, env
+     steps/s); the fast dry-run tier against 1 rank on the
+     card (tests/test_torch_dp_train.py's rules) and the flagship tier
+     (`parallel.dryrun`; its library built on the host's CPU beside the
+     earlier phases). Ranks sharing one card measure the parallel path's
+     overhead, not a speedup. --dp runs this phase alone.
 
 Prints the card's name and power limit (nvidia-smi), then one JSON line
 with every kernel's numbers (launches: K1-K4 over the phase-3 calls, K5/K6
@@ -252,10 +274,13 @@ over the phase-6 updates, K7 over the phase-8 env path;
 launches_per_train_iter over phase 11's collect and train_iter,
 launches_per_clutter_iter over phase 12's, launches_per_goal_update over
 phase 13's cli.train_goal steps, launches_per_image_iter over phase 14's
-counted iteration; ms, plain_ms,
+counted iteration, launches_per_dp_iter on each of phase 16's ranks over
+its counted iteration; ms, plain_ms,
 bound_ms: K1-K4 summed over the kernel's levels in one forward at
 B=1024 on the synthetic serving clouds, K5/K6 over their levels in one policy-encoder train forward at
-B=256, K7 one 75-substep launch at B=1024), then as the last line
+B=256, K7 one 75-substep launch at B=1024; dp_split_ms: K5/K6 over the
+same forward split over phase 16's 2 ranks, a rank's host clock), then
+as the last line
 {"ok": true, "device": {...}}. Exits non-zero, printing no result, when
 no CUDA card is available or any phase fails.
 """
@@ -349,9 +374,9 @@ CLUTTER_CFG = os.path.join(os.path.dirname(os.path.abspath(__file__)),
 MULTI_FAST_BATCH = 256        # physics/multi.py (far clutter) against K7
 # the B=8 clutter path card vs CPU: planner-expert steps, and the steps
 # before which every env's plan is redone as a DAgger replan (cut from
-# RL_MAX_STEP's 20 to stay within the run's time limit)
-CLUTTER_CHECK_STEPS = 8
-CLUTTER_REPLANS = (2, 4, 6)
+# RL_MAX_STEP's 20, then 8, to stay within the run's time limit)
+CLUTTER_CHECK_STEPS = 6
+CLUTTER_REPLANS = (2, 4)
 LOOP_ENVS = 1024              # the train loop's env count: bench.py's
 LOOP_SEED = 11                # the B=8 loop check's generators
 ENV_STEPS = 20                # RL_MAX_STEP
@@ -446,8 +471,9 @@ POINT_SHARE_BOUND = 0.10
 # `ok` equal. The envs left (a descent the card's rounding carried further
 # than the nudges reach: 3 of 1024 in one run; an `ok` that differs) may
 # make up CHAOTIC_SHARE of the batch, each with its reached hand pose
-# within BRANCH_POSE_TOL.
-PLAN_BATCHES = (8, 1024)
+# within BRANCH_POSE_TOL. The larger batch was 1024 (the env path's) until
+# phase 16 joined the run; 256 keeps the run within its time limit.
+PLAN_BATCHES = (8, 256)
 PLAN_TOL_CARD = 1e-3
 PLAN_CHAOS = CHAOS_FACTOR
 BRANCH_JOINT_TOL = 1e-3  # rad: two standoff solutions this far apart are two branches
@@ -485,6 +511,21 @@ BF16_BATCHES = (1, 1024)
 
 def log(msg):
     print(msg, flush=True)
+
+
+def kernel_wrappers():
+    """{kernel: its wrapper}, each counting its launches in `.launches`."""
+    from gaddpg_tpu_torch.ops import contact_scan, sa, sa_train, sampling
+
+    return {
+        "fps": sampling.furthest_point_sampling,
+        "ball_query": sampling.ball_query,
+        "sa_gather_mlp": sa.sa_gather_mlp,
+        "mlp_maxpool": sa.mlp_maxpool,
+        "sa_train": sa_train.sa_train_fused,
+        "groupall_train": sa_train.groupall_train_fused,
+        "contact_scan": contact_scan.contact_scan,
+    }
 
 
 def card_line() -> str:
@@ -757,6 +798,29 @@ def train_grads(fn, kernel, args):
     return torch.autograd.grad((pooled * pooled).sum(), leaves)
 
 
+def check_train_grads(where, got_g, want_g, zero_biases=True):
+    """Phase 2's gradient rule for a train level: each leaf within 1e-3
+    of its own largest; the Dense biases feed a batch-stat BatchNorm, so
+    their exact gradient is 0 and both sides hold only cancellation noise:
+    each side within 1e-3 of the call's largest gradient of 0. A rank's
+    share of a gradient under a mesh (zero_biases=False) is not 0 there:
+    only the ranks' sum is, so every leaf takes the first rule. ->
+    (largest difference, largest gradient)."""
+    scale = max(w.abs().max().item() for w in want_g)
+    gerr = max((g - w).abs().max().item() for g, w in zip(got_g, want_g))
+    nin = len(got_g) - 12
+    for i, (g, w) in enumerate(zip(got_g, want_g)):
+        if zero_biases and i >= nin and (i - nin) % 4 == 1:  # Dense bias
+            zero = max(g.abs().max().item(), w.abs().max().item())
+            if zero > 1e-3 * scale:
+                raise AssertionError(f"{where}: Dense bias {(i - nin) // 4} gradient "
+                                     f"{zero:.3e}, not 0")
+            continue
+        torch.testing.assert_close(g, w, rtol=1e-3, atol=1e-3 * w.abs().max().item(),
+                                   msg=f"{where}: leaf {i}")
+    return gerr, scale
+
+
 def train_work(kernel, args):
     """(bytes, flops) the function of a train SA level needs on these
     inputs: each input read once, the pooled output and statistics
@@ -955,15 +1019,7 @@ class Smoke:
         self.build, self.sa, self.sa_train, self.sampling = build, sa, sa_train, sampling
         self.cs = contact_scan
         self.hand_points = HAND_FINGER_POINTS
-        self.wrappers = {
-            "fps": sampling.furthest_point_sampling,
-            "ball_query": sampling.ball_query,
-            "sa_gather_mlp": sa.sa_gather_mlp,
-            "mlp_maxpool": sa.mlp_maxpool,
-            "sa_train": sa_train.sa_train_fused,
-            "groupall_train": sa_train.groupall_train_fused,
-            "contact_scan": contact_scan.contact_scan,
-        }
+        self.wrappers = kernel_wrappers()
         self.serving = ("fps", "ball_query", "sa_gather_mlp", "mlp_maxpool")
         self.cfg = AgentConfig()
         # the entry points at their default device="cuda", as a user calls them
@@ -978,6 +1034,8 @@ class Smoke:
         self.per_clutter_iter = {}  # and over one td3_clutter iteration (phase 12)
         self.per_goal_update = {}  # and per GoalFeature update (phase 13)
         self.per_image_iter = {}  # and over one image-mode iteration (phase 14)
+        self.per_dp_iter = {}  # and on each of phase 16's ranks over one iteration
+        self.dp_split_ms = {}  # K5/K6 split at the reduction over 2 ranks (phase 16)
         self.card = card_line()
         self._scale2 = None
 
@@ -1483,20 +1541,10 @@ class Smoke:
             # Dense biases feed a batch-stat BatchNorm, so their exact
             # gradient is 0 and both sides hold only cancellation noise:
             # each side within 1e-3 of the call's largest gradient of 0
-            got_g, want_g = (train_grads(fn, kernel, args) for fn in
-                             (self.wrappers[kernel], self.train_reference(kernel)))
-            scale = max(w.abs().max().item() for w in want_g)
-            gerr = max((g - w).abs().max().item() for g, w in zip(got_g, want_g))
-            nin = len(got_g) - 12
-            for i, (g, w) in enumerate(zip(got_g, want_g)):
-                if i >= nin and (i - nin) % 4 == 1:  # Dense bias
-                    zero = max(g.abs().max().item(), w.abs().max().item())
-                    if zero > 1e-3 * scale:
-                        raise AssertionError(f"{kernel} {label} B={batch}: Dense bias "
-                                             f"{(i - nin) // 4} gradient {zero:.3e}, not 0")
-                    continue
-                torch.testing.assert_close(g, w, rtol=1e-3,
-                                           atol=1e-3 * w.abs().max().item(), msg=f"leaf {i}")
+            gerr, scale = check_train_grads(
+                f"{kernel} {label} B={batch}",
+                *(train_grads(fn, kernel, args) for fn in
+                  (self.wrappers[kernel], self.train_reference(kernel))))
             note = f"grad max_abs_err={gerr:.3e} (largest grad {scale:.3e})"
         log(f"[check] {kernel:14s} {label:10s} B={batch:4d} pooled+stats "
             f"max_abs_err={err:.3e}, {note}, pooled and stats bit-identical over two calls ok")
@@ -3166,7 +3214,7 @@ class Smoke:
                 f"{grp} {o} of {n}" for grp, (o, n, _) in offs.items()) + " within bounds ok")
 
     # -- phase 12: dynamic clutter -------------------------------------------------------
-    def clutter_path(self):
+    def clutter_path(self, profile=True):
         """One `Trainer` iteration of experiments/cfgs/td3_clutter.yaml at its
         own sizes, as a user runs it: 256 envs of EnvParams(num_clutter=2,
         use_planner=True) on the YCB proxy library, DAgger, 20 DDPG updates
@@ -3176,9 +3224,9 @@ class Smoke:
         every step and no K7 (physics/multi.py steps the clutter scenes);
         train_iter K1, K2, K5, K6 through the updates. The same iteration
         gives the times of record (host-bound: a second iteration reads
-        within the spread of the first across hosts) and its parts' profile
-        (a step and an update; phase 8 profiles a replan). Returns {kernel:
-        launches over the iteration}."""
+        within the spread of the first across hosts) and, with `profile`,
+        its parts' profile (a step and an update; phase 8 profiles a
+        replan). Returns {kernel: launches over the iteration}."""
         import tempfile
 
         from gaddpg_tpu_torch.envs.assets import library_from_index
@@ -3241,7 +3289,8 @@ class Smoke:
         log(f"[clutter] train_iter: {train_ms:.3f} ms, {train_ms / cfg.updates_per_iter:.3f} ms "
             f"per update; iteration {collect_ms + train_ms:.3f} ms (the counted iteration; {card})")
         # phase 8 profiles a replan at B=1024; here a step and an update
-        self.loop_profile(tr, it, label="clutter iteration")
+        if profile:
+            self.loop_profile(tr, it, label="clutter iteration")
         del tr
         torch.cuda.empty_cache()
         return per_iter
@@ -3352,8 +3401,8 @@ class Smoke:
         log(f"[clutter] B=8 card vs CPU: {p.reset_tries} reset tries, {CLUTTER_CHECK_STEPS} planner-expert "
             f"steps and retract_batched within phase 9's rule (target, fingers and clutter; "
             f"chaotic envs {chaotic.nonzero()[:, 0].tolist()}, largest unmatched point share "
-            f"{worst:.4f}); {plans['held']} plans (the reset tries' and 3 DAgger replans of "
-            f"every env) within plan_rule ({plans['chaotic']} chaotic, {plans['branch']} on "
+            f"{worst:.4f}); {plans['held']} plans (the reset tries' and {len(CLUTTER_REPLANS)} DAgger "
+            f"replans of every env) within plan_rule ({plans['chaotic']} chaotic, {plans['branch']} on "
             f"another IK branch, {plans['left']} left); valid {st_c.valid_scene.tolist()}; "
             f"lifts card {lift_g.tolist()}, CPU {lift_c.tolist()} ok")
 
@@ -4067,12 +4116,14 @@ class Smoke:
                 "launches_per_clutter_iter": self.per_clutter_iter[kernel],
                 "launches_per_goal_update": self.per_goal_update[kernel],
                 "launches_per_image_iter": self.per_image_iter[kernel],
+                "launches_per_dp_iter": self.per_dp_iter[kernel],
                 "max_abs_err": self.errors[kernel],
                 "ms": t["ms"],
                 "plain_ms": t["plain_ms"],
                 "bound_ms": bms,
                 "bound_by": by,
                 "library_ms": None,
+                "dp_split_ms": self.dp_split_ms.get(kernel),
             })
         return {"kernels": rows}
 
@@ -4141,12 +4192,14 @@ PLAIN_ON_CARD = {"K5": ("_sa_train_kernels", "sa_train_reference"),
                  "K6": ("_groupall_train_kernels", "groupall_train_reference")}
 
 
-def clutter_phase(smoke, gen, mark=None):
-    """Phase 12: the td3_clutter iteration at full width, then the clutter
-    path at B=8 card vs CPU and physics/multi.py against K7."""
+def clutter_phase(smoke, gen, mark=None, profile=True):
+    """Phase 12: the td3_clutter iteration at full width (its parts'
+    profile with `profile`: --clutter alone; the full run leaves it out to
+    stay within its time limit), then the clutter path at B=8 card vs CPU
+    and physics/multi.py against K7."""
     from gaddpg_tpu_torch.envs.assets import library_from_index
 
-    smoke.per_clutter_iter = smoke.clutter_path()
+    smoke.per_clutter_iter = smoke.clutter_path(profile)
     if mark:
         mark("clutter")
     with torch.no_grad():
@@ -4286,10 +4339,15 @@ def _build_library(index, path, where):
     from gaddpg_tpu_torch.data.mesh_native import native_available
     from gaddpg_tpu_torch.envs.assets import library_from_index, save_library
 
+    torch.set_num_threads(1)  # host work beside the card's phases: leave them the cores
     t0 = time.perf_counter()
-    lib = library_from_index(index)
+    if index == DP_FLAGSHIP:
+        from gaddpg_tpu_torch.parallel.dryrun import build_flagship_library
+
+        build_flagship_library(path)
+    else:
+        save_library(library_from_index(index), path)
     secs = time.perf_counter() - t0
-    save_library(lib, path)
     with open(path + ".json", "w") as f:
         json.dump({"seconds": secs, "native": native_available(), "where": where}, f)
 
@@ -4347,6 +4405,424 @@ def proc_phase(smoke, gen, build, mark=None):
     log(f"[proc] phase 13 took {time.perf_counter() - t0:.1f} s ({smoke.card})")
 
 
+# -- phase 16: data-parallel training ---------------------------------------------------
+# Two ranks share the one card over gloo, their collectives staged through
+# the host (NCCL refuses two ranks on one device); one rank alone runs over
+# NCCL. Ranks sharing one card measure the overhead of the parallel path,
+# not a speedup: one card cannot show one.
+DP_RANKS = 2
+DP_TIMEOUT = 900              # s, each launch of phase 16's ranks
+DP_NCCL_INIT_S = 120          # s, the one-rank NCCL group's set-up
+DP_TIER_WORLD = 2             # the dry-run tiers at a 2-rank dry run's sizes
+DP_SEED = 16                  # the sharded updates' state and batch
+DP_FLAGSHIP = "dryrun flagship"  # LibraryBuild: build_proc_library(2, seed0=11)
+DP_RING_FIELDS = ("reward", "returns", "episode_map", "timestep", "expert_flags", "terminal")
+
+
+def _to(tree, device):
+    """Every tensor of `tree` (dicts, lists, tuples) on `device`."""
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().to(device)
+    if isinstance(tree, dict):
+        return {k: _to(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_to(v, device) for v in tree)
+    return tree
+
+
+def state_digest(tensors):
+    """sha256 of the tensors' bytes, in order: equal digests, equal bits."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().cpu().reshape(-1).view(torch.uint8).numpy().tobytes())
+    return h.hexdigest()
+
+
+def _numpy(tensors):
+    """Copies of `tensors` as numpy arrays (never views of a tensor that
+    moves on)."""
+    return [t.detach().cpu().numpy().copy() for t in tensors]
+
+
+class _RankCounts:
+    """The kernels' launch counters and `Smoke.timed_iteration` in a rank,
+    without the rest of `Smoke`."""
+    counts, reset_counts, timed_iteration = Smoke.counts, Smoke.reset_counts, \
+        Smoke.timed_iteration
+
+    def __init__(self):
+        self.wrappers = kernel_wrappers()
+
+
+@contextlib.contextmanager
+def collective_clock(total):
+    """Host time inside the mesh's collectives (their staging through the
+    host, the transfer, the copy back) added to total[0]; the card is
+    synchronised before each, so queued work does not count."""
+    from gaddpg_tpu_torch.parallel import mesh as mesh_lib
+
+    out_fn, back_fn, t0 = mesh_lib._out, mesh_lib._back, [0.0]
+
+    def out(mesh, x):
+        torch.cuda.synchronize()
+        t0[0] = time.perf_counter()
+        return out_fn(mesh, x)
+
+    def back(x, like):
+        y = back_fn(x, like)
+        torch.cuda.synchronize()
+        total[0] += (time.perf_counter() - t0[0]) * 1e3
+        return y
+
+    mesh_lib._out, mesh_lib._back = out, back
+    try:
+        yield total
+    finally:
+        mesh_lib._out, mesh_lib._back = out_fn, back_fn
+
+
+def clocked_call(fn):
+    """One call of fn with `collective_clock` on -> (its ms, host clock
+    synchronised around it, the ms inside its collectives)."""
+    coll = [0.0]
+    with collective_clock(coll):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3, coll[0]
+
+
+def dp_kernels_rank(mesh, calls):
+    """K5/K6 split at the reduction, on this rank's half of each call's
+    rows: against the plain version with the same reduction on the card
+    (phase 2's bounds, gradients included), two calls bit-identical ->
+    [(pooled, statistics, max_abs_err, grad max_abs_err, ms)]."""
+    import functools
+
+    from gaddpg_tpu_torch.ops import sa_train
+    from gaddpg_tpu_torch.parallel.mesh import local_slice
+
+    wrappers = kernel_wrappers()
+    plain = {"sa_train": sa_train.sa_train_reference,
+             "groupall_train": sa_train.groupall_train_reference}
+    out = []
+    for label, kernel, args in calls:
+        *lead, dense = _to(args, mesh.device)
+        args = (*(t[local_slice(mesh, t.shape[0])] for t in lead), dense)
+        fn = functools.partial(wrappers[kernel], mesh=mesh)
+        ref = functools.partial(plain[kernel], mesh=mesh)
+        with torch.no_grad():
+            got, stats = fn(*args)
+            again, stats2 = fn(*args)
+            want, want_stats = ref(*args)
+        torch.cuda.synchronize()
+        flat = [t for mv in stats for t in mv]
+        if not torch.equal(got, again) or not all(
+                torch.equal(a, b) for a, b in zip(flat, [t for mv in stats2 for t in mv])):
+            raise AssertionError(f"{kernel} {label} split: two calls differ")
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+        err = (got - want).abs().max().item()
+        for t, w in zip(flat, [t for mv in want_stats for t in mv]):
+            torch.testing.assert_close(t, w, rtol=1e-4, atol=1e-4)
+            err = max(err, (t - w).abs().max().item())
+        gerr, _ = check_train_grads(f"{kernel} {label} split",
+                                    *(train_grads(f, kernel, args) for f in (fn, ref)),
+                                    zero_biases=False)
+        with torch.no_grad():
+            ms = host_ms(lambda: fn(*args), reps=5)
+        out.append((got.cpu().numpy(), _numpy(flat), err, gerr, ms))
+    return out
+
+
+def dp_updates_rank(mesh, cfg, start, batch, draws, timed=3):
+    """The sharded DDPG and BC updates (`make_sharded_update`, the global
+    batch in) from `start` (a CPU AgentState) on this rank, then `timed`
+    more of each on the stepped state (host clock), then one with the
+    time inside the collectives clocked (`collective_clock`, whose
+    synchronisations would slow the timed ones) -> {kind: (metrics, state
+    tensors (rank 0's; None on the others), counts, the tensors' digest,
+    ms, clocked update ms, of which in collectives)}."""
+    from gaddpg_tpu_torch.agents import make_bc_update, make_ddpg_update
+    from gaddpg_tpu_torch.agents.state import state_counts, state_tensors
+    from gaddpg_tpu_torch.parallel.mesh import make_sharded_update
+
+    dev = mesh.device
+    batch, draws = _to(batch, dev), draws.to(dev)
+    out = {}
+    for kind, make in (("ddpg", make_ddpg_update), ("bc", make_bc_update)):
+        state = start.to(dev)
+        run = make_sharded_update(make(cfg, dev, mesh=mesh), mesh)
+        step = ((lambda: run(state, batch, noise_draws=draws)) if kind == "ddpg"
+                else (lambda: run(state, batch)))
+        metrics = {k: float(v) for k, v in step().items()}
+        # rank 0's tensors for the comparison, every rank's digest for its bits
+        tensors = _numpy(state_tensors(state)) if mesh.is_lead else None
+        digest, counts = state_digest(state_tensors(state)), state_counts(state)
+        out[kind] = (metrics, tensors, counts, digest, host_ms(step, reps=timed),
+                     *clocked_call(step))
+    return out
+
+
+def dp_loop_rank(mesh):
+    """Phase 16's TrainConfig() iteration, as phase 11 runs it at
+    LOOP_ENVS envs, on this rank's share: one iteration, counted and
+    timed (`Smoke.timed_iteration`; the rank's first, cold as phase 11's
+    first iteration is)."""
+    import tempfile
+
+    from gaddpg_tpu_torch.envs.assets import library_from_index
+    from gaddpg_tpu_torch.train import Trainer, load_config
+
+    cfg = load_config(overrides={"num_envs": LOOP_ENVS,
+                                 "output_dir": tempfile.mkdtemp(prefix="dp_loop_")},
+                      policy="DDPG")
+    t0 = time.perf_counter()
+    tr = Trainer(cfg, lib=library_from_index("ycb", "train"), mesh=mesh)
+    torch.cuda.synchronize()
+    setup_ms = (time.perf_counter() - t0) * 1e3
+    counter = _RankCounts()
+    counter.reset_counts()
+    it = counter.timed_iteration(tr, counts=True)
+    keep = ("stats", "collect_ms", "train_ms", "metrics", "inserted", "spans", "calls",
+            "collect_counts", "train_counts")
+    return {"setup_ms": setup_ms, "horizon": cfg.rollout_horizon,
+            "updates": cfg.updates_per_iter, "update_step": tr.update_step,
+            "buffer_bytes": tr.buffer.nbytes, **{k: it[k] for k in keep}}
+
+
+def dp_fast_tier(mesh, output_dir, device="cuda"):
+    """The fast dry-run tier at DP_TIER_WORLD ranks' sizes on this mesh
+    (one rank: mesh None) with the dry run's checks -> (collect stats,
+    the gathered ring, update metrics, update_step, state tensors)."""
+    from gaddpg_tpu_torch.agents.state import state_tensors
+    from gaddpg_tpu_torch.parallel.dryrun import tier_config, tier_iteration, tier_library
+    from gaddpg_tpu_torch.replay.buffer import gather_buffer
+    from gaddpg_tpu_torch.train import Trainer
+
+    tr = Trainer(tier_config(DP_TIER_WORLD, output_dir), lib=tier_library(False), mesh=mesh,
+                 device=device)
+    roll, metrics = tier_iteration(tr, False)
+    ring = {k: v.cpu().numpy() for k, v in gather_buffer(tr.buffer).items()}
+    return roll, ring, metrics, tr.update_step, _numpy(state_tensors(tr.agent_state))
+
+
+def dp_rank(mesh, calls, cfg, start, batch, draws, work, flagship_lib):
+    """One of the ranks sharing the card: every part of phase 16 that runs
+    on ranks, in order."""
+    from gaddpg_tpu_torch.parallel.dryrun import run_tier
+
+    t0 = time.perf_counter()
+    out = {"kernels": dp_kernels_rank(mesh, calls),
+           "updates": dp_updates_rank(mesh, cfg, start, batch, draws),
+           "loop": dp_loop_rank(mesh),
+           "fast": dp_fast_tier(mesh, os.path.join(work, "fast"))}
+    t1 = time.perf_counter()
+    out["flagship"] = run_tier(mesh, True, os.path.join(work, "flagship"), flagship_lib)
+    out["flagship_s"] = time.perf_counter() - t1
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def _load_state(template, tensors, counts):
+    """A copy of `template` holding a rank's state tensors and counts."""
+    from gaddpg_tpu_torch.agents.state import set_state_counts, state_tensors
+
+    state = template.to(template.device)
+    with torch.no_grad():
+        for t, a in zip(state_tensors(state), tensors, strict=True):
+            t.copy_(torch.from_numpy(a))
+    set_state_counts(state, counts)
+    return state
+
+
+def dp_phase(smoke, gen, flagship_build, mark=None):
+    """Phase 16: data-parallel training with ranks sharing the card, and
+    one rank over NCCL (this process, alone in its group). The references
+    run here first: the K5/K6 calls on the whole batch, the updates
+    without a mesh, the fast tier on one rank."""
+    import tempfile
+
+    from gaddpg_tpu_torch.agents import (
+        AgentConfig, create_agent_state, make_bc_update, make_ddpg_update,
+    )
+    from gaddpg_tpu_torch.parallel import init_mesh, launch
+    from gaddpg_tpu_torch.parallel.mesh import shutdown
+
+    t_phase = time.perf_counter()
+    card, dev = smoke.card, smoke.device
+    # K5/K6 at the learner's shapes, scale 1 and 2, on the whole batch
+    calls = [(tag + label, kernel, args) for tag, state in (("", None),
+                                                           ("scale 2 ", smoke.scale2()[2]))
+             for label, kernel, args in smoke.train_calls(TRAIN_BATCH, gen, state)]
+    with torch.no_grad():
+        whole = [smoke.wrappers[kernel](*args) for _, kernel, args in calls]
+    # the updates' common start: a state with carried Adam moments, the actor term on
+    cfg = AgentConfig(target_update_interval=1, collision_aux_weight=0.1,
+                      collision_demo_discount=0.5)
+    start = create_agent_state(cfg, TRAIN_POINTS,
+                               generator=torch.Generator().manual_seed(DP_SEED))
+    dgen = torch.Generator(device=dev).manual_seed(DP_SEED)
+    make_ddpg_update(cfg)(start, smoke.mixed_batch(TRAIN_BATCH, dgen))
+    start.update_step = 0
+    batch = smoke.mixed_batch(TRAIN_BATCH, dgen)
+    draws = torch.rand((TRAIN_BATCH, 6), generator=dgen, device=dev)
+    alone = {}
+    for kind, make in (("ddpg", make_ddpg_update), ("bc", make_bc_update)):
+        state, upd = start.to(dev), make(cfg)
+        step = ((lambda: upd(state, batch, noise_draws=draws)) if kind == "ddpg"
+                else (lambda: upd(state, batch)))
+        metrics = {k: float(v) for k, v in step().items()}
+        after = state.to("cpu")
+        alone[kind] = (metrics, after, host_ms(step, reps=3))
+    if float(alone["ddpg"][0]["actor_critic_loss"]) == 0.0:
+        raise AssertionError("dp: the actor term is not live")
+    work = tempfile.mkdtemp(prefix="dp_")
+    one = dp_fast_tier(None, os.path.join(work, "fast_one"))
+    _, info = flagship_build.result()
+    log(f"[dp] references on one rank done; the flagship tier's library built in "
+        f"{info['seconds']:.1f} s on the host's CPU ({info['where']})")
+    start_cpu = start.to("cpu")
+    # one rank over NCCL, this process alone in its group
+    mesh = init_mesh(1, 0, dev, "file://" + os.path.join(work, "nccl-rendezvous"),
+                     timeout_s=DP_NCCL_INIT_S)
+    try:
+        nccl = [dp_updates_rank(mesh, cfg, start_cpu, _to(batch, "cpu"), draws.cpu())]
+    finally:
+        shutdown()
+    args = ([(label, kernel, _to(args, "cpu")) for label, kernel, args in calls],
+            cfg, start_cpu, _to(batch, "cpu"), draws.cpu(), work, flagship_build.path)
+    t0 = time.perf_counter()
+    ranks = launch(dp_rank, DP_RANKS, args=args, devices=["cuda:0"] * DP_RANKS,
+                   rendezvous_dir=work, timeout_s=DP_TIMEOUT, threads=4)
+    log(f"[dp] {DP_RANKS} ranks on one card (gloo, collectives staged through the host): "
+        f"launched, ran and joined in {time.perf_counter() - t0:.1f} s, each rank's work "
+        + ", ".join(f"{rank['seconds']:.1f}" for rank in ranks) + f" s ({card})")
+    if mark:
+        mark("dp ranks")
+
+    # K5/K6 split across the ranks against the whole batch
+    for i, ((label, kernel, _), (pooled, stats)) in enumerate(zip(calls, whole)):
+        flat = [t for mv in stats for t in mv]
+        rows = pooled.shape[0] // DP_RANKS
+        err = 0.0
+        for r, rank in enumerate(ranks):
+            got, got_stats, split_err, gerr, ms = rank["kernels"][i]
+            want = pooled[r * rows:(r + 1) * rows].cpu()
+            torch.testing.assert_close(torch.from_numpy(got), want, rtol=1e-4, atol=1e-4)
+            err = max(err, (torch.from_numpy(got) - want).abs().max().item())
+            for t, w in zip(got_stats, flat):
+                torch.testing.assert_close(torch.from_numpy(t), w.cpu(), rtol=1e-4, atol=1e-4)
+                err = max(err, (torch.from_numpy(t) - w.cpu()).abs().max().item())
+        smoke.errors[kernel] = max(smoke.errors[kernel], err)
+        r0 = ranks[0]["kernels"][i]
+        log(f"[dp] {kernel:14s} {label:16s} B={TRAIN_BATCH} split over {DP_RANKS} ranks "
+            f"({rows} rows each): against the whole-batch kernel call max_abs_err={err:.3e}, "
+            f"against the plain version with the same reduction {r0[2]:.3e}, grad "
+            f"max_abs_err={r0[3]:.3e}, two calls bit-identical; {r0[4]:.3f} ms a call on "
+            f"rank 0 (host clock, the host-staged reduction included) ok ({card})")
+
+    # K5 and K6 split, summed over one policy-encoder train forward (SA1, SA2; SA3)
+    split = {k: sum(rank_k[4] for (label, kernel, _), rank_k in zip(calls, ranks[0]["kernels"])
+                    if kernel == k and label.startswith("policy"))
+             for k in ("sa_train", "groupall_train")}
+    smoke.dp_split_ms = split
+    log(f"[dp] one policy-encoder train forward at B={TRAIN_BATCH} split over {DP_RANKS} ranks "
+        f"of one card: K5 {split['sa_train']:.3f} ms, K6 {split['groupall_train']:.3f} ms a "
+        f"rank (rank 0, host clock, each layer's reduction staged through the host) ({card})")
+    # the sharded updates against the update without a mesh, one rank over NCCL too
+    for kind in ("ddpg", "bc"):
+        want, state_ref, ms_alone = alone[kind]  # state_ref on the CPU
+        for where, outs in ((f"{DP_RANKS} ranks, one card, gloo", [r["updates"] for r in ranks]),
+                            ("1 rank, NCCL", nccl)):
+            metrics, tensors, counts, digest, ms, clocked_ms, coll_ms = outs[0][kind]
+            if any(o[kind][2] != counts or o[kind][3] != digest for o in outs[1:]):
+                raise AssertionError(f"dp {kind} {where}: the ranks' states differ")
+            for k, w in want.items():
+                torch.testing.assert_close(torch.tensor(metrics[k]), torch.tensor(w),
+                                           rtol=1e-3, atol=1e-3, msg=f"dp {kind} {k}")
+            got = _load_state(start, tensors, counts)
+            serr, offs = smoke.compare_updated(cfg, start_cpu, got, state_ref, quiet=True)
+            log(f"[dp] {kind} update B={TRAIN_BATCH} x {TRAIN_POINTS} on {where}: metrics "
+                f"within 1e-3 of the update without a mesh, running statistics "
+                f"max_abs_err={serr:.3e}, moves off " + ", ".join(
+                    f"{g} {o}/{n}" for g, (o, n, _) in offs.items())
+                + f"; every rank's state bit-identical; {ms:.3f} ms an update against "
+                f"{ms_alone:.3f} ms without a mesh (host clock, median of 3); with the "
+                f"collectives clocked {clocked_ms:.3f} ms, {coll_ms:.3f} of them in the "
+                f"collectives ({coll_ms / clocked_ms:.1%}) ok ({card})")
+    if mark:
+        mark("dp updates")
+
+    # the TrainConfig() iteration on the ranks: launches as phase 11's
+    loops = [r["loop"] for r in ranks]
+    horizon, updates = loops[0]["horizon"], loops[0]["updates"]
+    want_collect = {k: PER_CALL[k] * horizon for k in smoke.wrappers}
+    want_collect["contact_scan"] = RESET_K7 + STEP_K7 * horizon + RETRACT_K7
+    want_train = {k: v * updates for k, v in DDPG_PER_UPDATE.items()}
+    for r, lp in enumerate(loops):
+        if lp["collect_counts"] != want_collect or lp["train_counts"] != want_train:
+            raise AssertionError(f"dp loop rank {r}: launches {lp['collect_counts']} in "
+                                 f"collect, {lp['train_counts']} in train_iter; expected "
+                                 f"{want_collect}, {want_train} (phase 11's)")
+        st = lp["stats"]
+        bad = [k for k, v in {**st, **lp["metrics"]}.items() if not np.isfinite(v)]
+        if st["buffer_idx"] <= 0 or lp["update_step"] != updates or bad:
+            raise AssertionError(f"dp loop rank {r}: buffer_idx {st['buffer_idx']}, "
+                                 f"update_step {lp['update_step']}, non-finite {bad}")
+    per_rank = {k: loops[0]["collect_counts"][k] + loops[0]["train_counts"][k]
+                for k in smoke.wrappers}
+    smoke.per_dp_iter = per_rank
+    it_ms = max(lp["collect_ms"] + lp["train_ms"] for lp in loops)
+    envs = LOOP_ENVS * horizon
+    log(f"[dp] TrainConfig() iteration at {LOOP_ENVS} envs on {DP_RANKS} ranks of one card "
+        f"({LOOP_ENVS // DP_RANKS} envs a rank, batch {TRAIN_BATCH} x {TRAIN_POINTS}, "
+        f"{updates} updates): set up {max(lp['setup_ms'] for lp in loops):.1f} ms; each rank's "
+        f"launches per iteration {per_rank}, equal to phase 11's; the ring's point states "
+        f"sharded, {loops[0]['buffer_bytes']} bytes a rank ({card})")
+    for r, lp in enumerate(loops):
+        log(f"[dp] rank {r}, its first (cold) iteration: collect "
+            f"{collect_split(lp['spans'], lp['collect_ms'], horizon)}; train_iter "
+            f"{lp['train_ms']:.3f} ms (host clock; {card})")
+    log(f"[dp] iteration {it_ms:.3f} ms (the slower rank; cold, as phase 11's first), {envs} "
+        f"env steps, {envs / max(lp['collect_ms'] for lp in loops) * 1e3:.1f} env steps/s over "
+        f"both ranks; valid scenes {loops[0]['stats']['valid_scene_frac']:.4f}, buffer_idx "
+        f"{loops[0]['stats']['buffer_idx']}: {DP_RANKS} ranks sharing one card measure the "
+        f"parallel path's overhead, not a speedup ({card})")
+    if mark:
+        mark("dp loop")
+
+    # the fast tier against one rank (tests/test_torch_dp_train.py's rules)
+    n = one[0]["buffer_idx"]
+    for r, (roll, ring, metrics, step, tensors) in enumerate(rank["fast"] for rank in ranks):
+        for k in ("buffer_idx", "rollout_success", "valid_scene_frac"):
+            if roll[k] != one[0][k]:
+                raise AssertionError(f"dp fast tier rank {r}: {k} {roll[k]} against {one[0][k]}")
+        for k in DP_RING_FIELDS:
+            np.testing.assert_allclose(ring[k][:n], one[1][k][:n], atol=1e-5,
+                                       err_msg=f"dp fast tier rank {r}: ring {k}")
+        off = float(np.mean(np.abs(ring["action"][:n] - one[1]["action"][:n]) > 1e-4))
+        med = float(np.median(np.abs(ring["point_state"][:n] - one[1]["point_state"][:n])))
+        if off >= 0.25 or med >= 1e-4:
+            raise AssertionError(f"dp fast tier rank {r}: {off:.0%} of action elements off, "
+                                 f"point-state median {med:.3e}")
+        if set(metrics) != set(one[2]) or step != one[3] or not all(
+                np.array_equal(a, b) for a, b in zip(tensors, ranks[0]["fast"][4])):
+            raise AssertionError(f"dp fast tier rank {r}: metrics, update_step or state")
+    log(f"[dp] fast dry-run tier on {DP_RANKS} ranks against 1 rank on the card: buffer_idx "
+        f"{n}, success and valid-scene share equal, ring fields within 1e-5, actions and "
+        f"points within test_mesh.py's rules, finite metrics, update_step 1, every rank's "
+        f"state bit-identical: DRYRUN_OK ranks={DP_RANKS} ok")
+    fl = ranks[0]["flagship"]
+    log(f"[dp] flagship dry-run tier (the planner, 2 clutter bodies, build_proc_library(2, "
+        f"seed0=11)) on {DP_RANKS} ranks in {ranks[0]['flagship_s']:.1f} s: buffer_idx "
+        f"{fl[0]['buffer_idx']}, finite metrics, update_step 1, every rank's state "
+        f"bit-identical: DRYRUN_FLAGSHIP_OK ranks={DP_RANKS} ok")
+    log(f"[dp] phase 16 took {time.perf_counter() - t_phase:.1f} s ({card})")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--scale2-seeds", type=seed_range, metavar="A-B",
@@ -4379,6 +4855,10 @@ def main(argv=None) -> int:
     ap.add_argument("--cli", action="store_true",
                     help="run phase 15 (train_online, train_test_offline --test with the "
                          "policy and --expert, show_metrics, as child processes) alone")
+    ap.add_argument("--dp", action="store_true",
+                    help="run phase 16 (data-parallel training: K5/K6 split across 2 ranks "
+                         "of the card, the sharded updates on 2 ranks and on 1 over NCCL, a "
+                         "TrainConfig() iteration on 2 ranks, both dry-run tiers) alone")
     ap.add_argument("--planner", action="store_true",
                     help="run the CHOMP planner alone: phase 8's env path with EnvParams(), "
                          "plan_to_goal card vs CPU, the reset, step and retract times and "
@@ -4397,7 +4877,7 @@ def main(argv=None) -> int:
     except ImportError as e:
         print(f"chip_smoke: the gaddpg_tpu_torch package is missing ({e})", file=sys.stderr)
         return 1
-    lib_build = None
+    builds = []  # the library builds running beside the card's phases
     try:
         t_start = time.perf_counter()
         log(f"[env] python {sys.version.split()[0]}, torch {torch.__version__}, "
@@ -4429,8 +4909,8 @@ def main(argv=None) -> int:
             log(f"[time] whole run {time.perf_counter() - t_start:.1f} s")
             return 0
         if args.proc:
-            lib_build = LibraryBuild(PROC_INDEX, "alone")
-            proc_phase(Smoke(), torch.Generator(device="cuda").manual_seed(13), lib_build)
+            builds.append(LibraryBuild(PROC_INDEX, "alone"))
+            proc_phase(Smoke(), torch.Generator(device="cuda").manual_seed(13), builds[-1])
             print(card, flush=True)
             log(f"[time] whole run {time.perf_counter() - t_start:.1f} s")
             return 0
@@ -4440,6 +4920,12 @@ def main(argv=None) -> int:
                 image_phase(smoke)
             if args.cli:
                 cli_phase(smoke)
+            print(card, flush=True)
+            log(f"[time] whole run {time.perf_counter() - t_start:.1f} s")
+            return 0
+        if args.dp:
+            builds.append(LibraryBuild(DP_FLAGSHIP, "beside phase 16's references"))
+            dp_phase(Smoke(), torch.Generator(device="cuda").manual_seed(DP_SEED), builds[-1])
             print(card, flush=True)
             log(f"[time] whole run {time.perf_counter() - t_start:.1f} s")
             return 0
@@ -4467,8 +4953,11 @@ def main(argv=None) -> int:
             return 0
         torch.manual_seed(0)
         gen = torch.Generator(device="cuda").manual_seed(0)
-        # phase 13's library, built on the host's CPU while the card's phases run
+        # phase 13's and phase 16's libraries, built on the host's CPU while
+        # the card's phases run
         lib_build = LibraryBuild(PROC_INDEX, "beside phases 2-12")
+        dp_build = LibraryBuild(DP_FLAGSHIP, "beside phases 2-15")
+        builds += [lib_build, dp_build]
         with torch.no_grad():  # serving: no autograd graph anywhere
             smoke = Smoke()
             smoke.check_kernels(gen)
@@ -4518,17 +5007,18 @@ def main(argv=None) -> int:
         smoke.loop_card_vs_cpu()
         smoke.loop_card_vs_cpu(planner=True)
         mark("loop card vs CPU")
-        clutter_phase(smoke, gen, mark)
+        clutter_phase(smoke, gen, mark, profile=False)
         proc_phase(smoke, gen, lib_build, mark)
         image_phase(smoke, mark)
         cli_phase(smoke, mark)
+        dp_phase(smoke, gen, dp_build, mark)
         line = smoke.kernel_line(totals)
     except Exception:  # report which phase failed, then fail the run
         traceback.print_exc()
         return 1
     finally:
-        if lib_build is not None:
-            lib_build.stop()
+        for build_proc in builds:
+            build_proc.stop()
     log(f"[time] whole run {time.perf_counter() - t_start:.1f} s")
     print(card, flush=True)
     print(json.dumps(line), flush=True)

@@ -28,7 +28,11 @@ What is ported:
   (`models.resnet`, `AgentConfig(use_image=True)`);
 - the CLIs (`cli.train_online`, `cli.train_test_offline`,
   `cli.show_metrics`) and the visual utilities (`utils.video`,
-  `utils.recording`).
+  `utils.recording`);
+- data-parallel training (`parallel`: one process a rank started by
+  `parallel.launch`, `train.Trainer(mesh=)` with the env batch, the
+  replay ring's capacity and the update's batch sharded, every
+  BatchNorm's statistics over the global batch; `parallel.dryrun`).
 Their seven kernels (furthest point sampling, ball query, the two eval
 set-abstraction kernels, the two train-mode stats kernels and the
 physics contact scan) are hand-written CUDA C++ for sm_90a under

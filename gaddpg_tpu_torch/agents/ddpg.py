@@ -21,6 +21,14 @@ Of the five train-mode encoder forwards, the BatchNorm running
 statistics keep those of the value encoder's critic-phase forward and of
 the policy encoder's policy-phase forward, as in the JAX update.
 
+Under a data-parallel mesh (`mesh=`, `parallel.mesh`) each rank takes
+its B/n rows of the batch and of the smoothing noise (drawn for the
+global batch, `parallel.mesh.draw_rows`): every BatchNorm statistic is
+over the global batch, each loss is the rank's sum over the global
+count, one flat all-reduce sums the gradients before each optimizer
+step, and the metrics are the global batch's. The parameters, targets,
+Adam moments and running statistics stay bit-identical on every rank.
+
 Deviation carried over from the JAX package: the reference's uniform
 noise `(rand*3 - 6) * scale` is biased (always negative;
 reference: core/utils.py:575); the symmetric `(rand*6 - 3) * scale` is
@@ -33,9 +41,10 @@ import torch
 
 from gaddpg_tpu_torch.agents.config import AgentConfig
 from gaddpg_tpu_torch.agents.losses import (
-    collision_bce, goal_pred_loss, pose_bc_loss, smooth_l1,
+    collision_bce, global_mean, global_sum, goal_pred_loss, pose_bc_loss, smooth_l1,
 )
 from gaddpg_tpu_torch.agents.state import AgentState, check_supported
+from gaddpg_tpu_torch.parallel.mesh import draw_rows, sum_grads, sum_over_ranks
 from gaddpg_tpu_torch.utils.precision import f32_matmuls, resolve_device
 
 
@@ -68,11 +77,11 @@ def exploration_noise(draws, noise_scale, noise_type: str = "uniform"):
 
 
 def extract_feature(feat, point_state, time_batch, action=None, value: bool = False,
-                    train: bool = False, use_time: bool = True):
+                    train: bool = False, use_time: bool = True, mesh=None):
     """Encoder forward -> (feature (B, 512 (+1 time column)), stats):
-    stats is the encoder's batch [(mean, var)] with train=True, else
-    None."""
-    out = feat(point_state, action=action, value=value, train=train)
+    stats is the encoder's batch [(mean, var)] with train=True (over every
+    rank's rows with a data-parallel `mesh`), else None."""
+    out = feat(point_state, action=action, value=value, train=train, mesh=mesh)
     out, stats = out if train else (out, None)
     if use_time:
         out = torch.cat([out, time_batch[:, None].to(out.dtype)], dim=-1)
@@ -135,6 +144,14 @@ def _grads(loss, params):
     return torch.autograd.grad(loss, params, allow_unused=True)
 
 
+def resolve_update_device(device, mesh):
+    """The update's device; under a mesh it must be the mesh's."""
+    device = resolve_device(device)
+    if mesh is not None and device != mesh.device:
+        raise ValueError(f"update on {device}, its mesh's rank on {mesh.device}")
+    return device
+
+
 def _check_inputs(name, state: AgentState, batch, device):
     if state.device != device:
         raise ValueError(f"agent state is on {state.device}, {name} on {device}")
@@ -143,13 +160,14 @@ def _check_inputs(name, state: AgentState, batch, device):
             raise ValueError(f"batch[{key!r}] is on {t.device}, {name} on {device}")
 
 
-def _policy_losses(cfg: AgentConfig, state: AgentState, batch, m, bc_weight: float):
+def _policy_losses(cfg: AgentConfig, state: AgentState, batch, m, bc_weight: float,
+                   mesh=None):
     """The policy phase's shared part: train-mode policy-encoder forward,
     PM behaviour cloning (expert rows, collision-discounted) scaled by
-    `bc_weight`, the goal aux loss and the collision aux loss.
-    -> (pi, stats, bc, aux, collision)."""
+    `bc_weight`, the goal aux loss and the collision aux loss (this rank's
+    shares of them under a `mesh`). -> (pi, stats, bc, aux, collision)."""
     feature, stats = extract_feature(state.feat, batch[obs_key(cfg)], batch["time"],
-                                     train=True, use_time=cfg.use_time)
+                                     train=True, use_time=cfg.use_time, mesh=mesh)
     mean, _, aux_pred = state.policy(feature)
     pi = torch.tanh(mean) * state.policy.action_high
     # collision-discounted imitation: expert transitions committed to a
@@ -157,14 +175,14 @@ def _policy_losses(cfg: AgentConfig, state: AgentState, batch, m, bc_weight: flo
     w_expert = m["expert"].to(torch.float32)
     if cfg.collision_demo_discount > 0:
         w_expert = w_expert * (1.0 - cfg.collision_demo_discount * batch["collide_future"])
-    bc = pose_bc_loss(pi, batch["expert_action"], w_expert) * bc_weight
+    bc = pose_bc_loss(pi, batch["expert_action"], w_expert, mesh) * bc_weight
     aux = 0.0
     if cfg.policy_aux:
-        aux = goal_pred_loss(aux_pred[:, :7], batch["goal"][:, :7], m["goal_reward"])
+        aux = goal_pred_loss(aux_pred[:, :7], batch["goal"][:, :7], m["goal_reward"], mesh)
     collision = 0.0
     if cfg.collision_aux_weight > 0:
-        collision = cfg.collision_aux_weight * collision_bce(aux_pred[:, -1],
-                                                             batch["collide_future"])
+        collision = cfg.collision_aux_weight * collision_bce(
+            aux_pred[:, -1], batch["collide_future"], mesh=mesh)
     return pi, stats, bc, aux, collision
 
 
@@ -172,7 +190,18 @@ def _metric(v, device):
     return v.detach() if isinstance(v, torch.Tensor) else torch.tensor(float(v), device=device)
 
 
-def make_ddpg_update(cfg: AgentConfig = AgentConfig(), device="cuda"):
+def _metrics(metrics, device, mesh=None, summed=()):
+    """The metrics as tensors; under a mesh, the `summed` ones (this rank's
+    shares of a global loss, mean or count) added across the ranks in one
+    all-reduce."""
+    out = {k: _metric(v, device) for k, v in metrics.items()}
+    if mesh is not None:
+        total = sum_over_ranks(mesh, torch.stack([out[k].to(torch.float32) for k in summed]))
+        out.update(zip(summed, total))
+    return out
+
+
+def make_ddpg_update(cfg: AgentConfig = AgentConfig(), device="cuda", mesh=None):
     """Build `update(state, batch, generator=None, noise_draws=None) ->
     metrics`, which takes one DDPG step on `state` in place (parameters,
     running statistics, targets, optimizers, update_step).
@@ -184,9 +213,15 @@ def make_ddpg_update(cfg: AgentConfig = AgentConfig(), device="cuda"):
     (B,), and collide_future (B,) when a collision term is on. The target
     smoothing noise takes its raw draws (B, 6), U[0, 1) for the uniform
     noise type, from `noise_draws` if given, else from `generator` (a
-    generator of `device`; None = torch's default one)."""
+    generator of `device`; None = torch's default one).
+
+    With a data-parallel `mesh` (the device must be its rank's), `batch`
+    and `noise_draws` are this rank's rows (`parallel.mesh.
+    make_sharded_update` takes the global batch), the draws from
+    `generator` are made for the global batch, and every rank's state
+    moves alike."""
     check_supported(cfg)
-    device = resolve_device(device)
+    device = resolve_update_device(device, mesh)
 
     @f32_matmuls
     def update(state: AgentState, batch, generator=None, noise_draws=None):
@@ -201,32 +236,37 @@ def make_ddpg_update(cfg: AgentConfig = AgentConfig(), device="cuda"):
 
         # ---------------- critic phase ----------------
         value_feat, stats1 = extract_feature(feat, ps, time, action=batch["action"],
-                                             value=True, train=True, use_time=cfg.use_time)
+                                             value=True, train=True, use_time=cfg.use_time,
+                                             mesh=mesh)
         qf1, qf2, critic_aux = state.critic(value_feat)
         with torch.no_grad():  # target value (reference: core/ddpg.py:61-88)
             next_ps, next_time = batch["next_" + obs_key(cfg)], time - 1.0
             next_feat, _ = extract_feature(feat, next_ps, next_time, train=True,
-                                           use_time=cfg.use_time)
+                                           use_time=cfg.use_time, mesh=mesh)
             next_mean, _, _ = state.policy_target(next_feat)
             next_action = torch.tanh(next_mean) * state.policy_target.action_high
             if noise_draws is None:
                 draw = torch.rand if cfg.noise_type == "uniform" else torch.randn
-                noise_draws = draw(next_action.shape, generator=generator, device=device)
+                noise_draws = draw_rows(
+                    mesh, lambda shape: draw(shape, generator=generator, device=device),
+                    next_action.shape)
             nd = exploration_noise(noise_draws, noise_scale, cfg.noise_type)
             nd = torch.cat([torch.clamp(nd[:, :3], -0.01, 0.01), nd[:, 3:]], dim=-1)
             next_vfeat, _ = extract_feature(feat, next_ps, next_time, action=next_action + nd,
-                                            value=True, train=True, use_time=cfg.use_time)
+                                            value=True, train=True, use_time=cfg.use_time,
+                                            mesh=mesh)
             q1t, q2t, _ = state.critic_target(next_vfeat)
             min_q = torch.minimum(q1t[:, 0], q2t[:, 0])
             next_q = batch["reward"] + (1.0 - batch["terminal"]) * cfg.gamma * min_q
-        critic_loss = (smooth_l1(qf1[:, 0], next_q, m["not_perturb"])
-                       + smooth_l1(qf2[:, 0], next_q, m["not_perturb"]))
+        critic_loss = (smooth_l1(qf1[:, 0], next_q, m["not_perturb"], mesh=mesh)
+                       + smooth_l1(qf2[:, 0], next_q, m["not_perturb"], mesh=mesh))
         critic_aux_loss = 0.0
         if cfg.critic_aux:
             critic_aux_loss = goal_pred_loss(critic_aux[:, :7], batch["goal"][:, :7],
-                                             m["goal_reward"])
+                                             m["goal_reward"], mesh)
         c_params, v_params = opt["critic"].params, opt["value_encoder"].params
-        grads = _grads(critic_loss + critic_aux_loss, c_params + v_params)
+        grads = sum_grads(mesh, _grads(critic_loss + critic_aux_loss, c_params + v_params),
+                          c_params + v_params)
         opt["critic"].step(grads[:len(c_params)])
         # the value-encoder optimizer advances even when its
         # parameters stay frozen
@@ -235,20 +275,21 @@ def make_ddpg_update(cfg: AgentConfig = AgentConfig(), device="cuda"):
         # ---------------- policy phase ----------------
         apply_ac = step % cfg.policy_update_gap == 0
         pi, stats2, bc, policy_aux, collision = _policy_losses(
-            cfg, state, batch, m, 1.0 - mix_policy_ratio)
+            cfg, state, batch, m, 1.0 - mix_policy_ratio, mesh)
         # delayed actor-critic term, through the updated critic and value
         # encoder, which it does not train; computed on every update (as
         # the JAX update does), differentiated only when it applies
         with _frozen(feat.value_encoder, state.critic), torch.set_grad_enabled(apply_ac):
             vfeat_pi, _ = extract_feature(feat, ps, time, action=pi, value=True, train=True,
-                                          use_time=cfg.use_time)
+                                          use_time=cfg.use_time, mesh=mesh)
             q1p, q2p, _ = state.critic(vfeat_pi)
             not_es = ~m["expert_reward"]
-            denom = torch.clamp(not_es.sum(), min=1)
+            denom = torch.clamp(global_sum(not_es, mesh), min=1)
             ac = -mix_policy_ratio * (torch.minimum(q1p[:, 0], q2p[:, 0]) * not_es).sum() / denom
         ac = ac if apply_ac else torch.zeros((), device=device)
         p_params, e_params = opt["policy"].params, opt["encoder"].params
-        grads = _grads(bc + policy_aux + collision + ac, p_params + e_params)
+        grads = sum_grads(mesh, _grads(bc + policy_aux + collision + ac, p_params + e_params),
+                          p_params + e_params)
         opt["policy"].step(grads[:len(p_params)])
         opt["encoder"].step(grads[len(p_params):], apply=cfg.train_feature)
 
@@ -265,15 +306,21 @@ def make_ddpg_update(cfg: AgentConfig = AgentConfig(), device="cuda"):
             "bc_loss": bc,
             "policy_grasp_aux_loss": policy_aux + collision,
             "actor_critic_loss": ac,
-            "q_mean": qf1.mean(),
+            "q_mean": global_mean(qf1, mesh),
             "reward_mask_num": m["reward"].sum(),
             "expert_mask_num": m["expert"].sum(),
             "mix_policy_ratio": mix_policy_ratio,
             "mix_value_ratio": mix_value_ratio,
         }
-        return {k: _metric(v, device) for k, v in metrics.items()}
+        return _metrics(metrics, device, mesh, DDPG_SUMMED)
 
+    update.mesh = mesh
     return update
+
+
+# the DDPG metrics that are sums of the ranks' shares under a mesh
+DDPG_SUMMED = ("critic_loss", "critic_grasp_aux_loss", "bc_loss", "policy_grasp_aux_loss",
+               "actor_critic_loss", "q_mean", "reward_mask_num", "expert_mask_num")
 
 
 def make_select_action(cfg: AgentConfig = AgentConfig(), device="cuda"):

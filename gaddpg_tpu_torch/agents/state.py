@@ -75,6 +75,35 @@ class AgentState:
         return out
 
 
+def state_tensors(state: AgentState):
+    """Every tensor of `state` in a fixed order: each module's parameters
+    and buffers (encoders, heads, targets, GoalFeature), then each
+    optimizer's Adam moments. The optimizers' counts and update_step are
+    host integers (`state_counts`)."""
+    out = []
+    for m in (state.feat, state.policy, state.critic, state.policy_target,
+              state.critic_target, state.goal):
+        if m is not None:
+            out += [*m.parameters(), *m.buffers()]
+    for opt in [*(state.opt or {}).values(), state.goal_opt]:
+        if opt is not None:
+            out += [*opt.mu, *opt.nu]
+    return out
+
+
+def state_counts(state: AgentState):
+    """update_step, then each optimizer's count, in `state_tensors`' order."""
+    opts = [o for o in [*(state.opt or {}).values(), state.goal_opt] if o is not None]
+    return [int(state.update_step)] + [o.count for o in opts]
+
+
+def set_state_counts(state: AgentState, counts):
+    state.update_step = int(counts[0])
+    opts = [o for o in [*(state.opt or {}).values(), state.goal_opt] if o is not None]
+    for opt, c in zip(opts, counts[1:], strict=True):
+        opt.count = int(c)
+
+
 def _moved_optimizer(src: AdamW, params, device) -> AdamW:
     """A copy of optimizer `src` stepping `params`, its moments on `device`."""
     opt = copy.copy(src)

@@ -44,7 +44,6 @@ def main(argv=None):
         if v is not None:
             overrides[k] = v
 
-    from gaddpg_tpu_torch.train.checkpoints import load_agent
     from gaddpg_tpu_torch.train.config import load_config
     from gaddpg_tpu_torch.train.loop import Trainer
 
@@ -55,11 +54,8 @@ def main(argv=None):
         json.dump(dataclasses.asdict(cfg), f, indent=2, default=str)
 
     trainer = Trainer(cfg, device=args.device)
-    if args.pretrained:
-        restored = load_agent(trainer.agent_state, args.pretrained)
-        if restored is not None:
-            trainer.agent_state = restored
-            print(f"resumed from {args.pretrained} at step {trainer.update_step}")
+    if args.pretrained and trainer.load_pretrained(args.pretrained):
+        print(f"resumed from {args.pretrained} at step {trainer.update_step}")
 
     t0 = time.time()
     perf = trainer.run(max_iters=args.max_iters)

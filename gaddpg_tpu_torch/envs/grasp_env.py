@@ -49,6 +49,7 @@ from gaddpg_tpu_torch.geometry.se3 import (
     pack_pose_rot_first, se3_from_quat_pos, se3_inverse, unpack_action,
 )
 from gaddpg_tpu_torch.models.heads import TASK6D_HIGH
+from gaddpg_tpu_torch.parallel.mesh import draw_rows
 from gaddpg_tpu_torch.physics.fast import fast_physics_step
 from gaddpg_tpu_torch.physics.multi import multi_physics_step
 from gaddpg_tpu_torch.physics.step import gripper_box_poses, physics_step
@@ -257,10 +258,17 @@ def state_from_numpy(tree, device="cuda") -> EnvState:
 
 class PandaGraspEnv:
     """Static params, the object library and a device; every method
-    works on a batch of envs and leaves its inputs unchanged."""
+    works on a batch of envs and leaves its inputs unchanged.
 
-    def __init__(self, params: EnvParams, lib: ObjectLibrary, device="cuda"):
+    With a data-parallel `mesh` (`parallel.mesh`) a batch is this rank's
+    share of the envs, and every random draw is made for the global batch
+    and sliced to this rank's rows (`draw_rows`), so that rank r's envs
+    are envs [r * B, (r + 1) * B) of the one-rank run with the same
+    generator state."""
+
+    def __init__(self, params: EnvParams, lib: ObjectLibrary, device="cuda", mesh=None):
         self.p = params
+        self.mesh = mesh
         self.device = resolve_device(device)
         self.lib = lib.to(self.device)
         self.t_cam = const(T_CAM, self.device)
@@ -347,17 +355,22 @@ class PandaGraspEnv:
         radii = const(panda.ARM_POINT_RADII, hand.device)[:-3]
         return torch.minimum(occ, spheres_zdepth(p.camera, cam_pose, arm_pts, radii))
 
-    def _rand(self, generator, shape):
-        """Uniforms drawn on the generator's device (the global generator
-        of this env's device without one), on this env's device: two envs
-        on two devices given generators in the same state draw the same."""
+    def _draw(self, fn, generator, shape, *bounds):
+        """fn(*bounds, shape) drawn on the generator's device (the global
+        generator of this env's device without one), on this env's device:
+        two envs on two devices given generators in the same state draw the
+        same. Under a mesh, this rank's rows of the global batch's draw."""
         dev = self.device if generator is None else generator.device
-        return torch.rand(shape, generator=generator, device=dev).to(self.device)
+        return draw_rows(self.mesh, lambda s: fn(*bounds, s, generator=generator, device=dev),
+                         shape).to(self.device)
+
+    def _rand(self, generator, shape):
+        """Uniforms of `shape`, drawn as `_draw` says."""
+        return self._draw(torch.rand, generator, shape)
 
     def _randn(self, generator, shape):
         """Standard normals, drawn as `_rand` draws its uniforms."""
-        dev = self.device if generator is None else generator.device
-        return torch.randn(shape, generator=generator, device=dev).to(self.device)
+        return self._draw(torch.randn, generator, shape)
 
     def _image(self, state: EnvState, cam_inv, surf_w, occ, generator, draws):
         """The RGBDM images (B, 5, H, W): a pseudo-albedo per object index;
@@ -589,10 +602,8 @@ class PandaGraspEnv:
         false = torch.zeros(b, dtype=torch.bool, device=dev)
         vis_seed = torch.zeros(b, dtype=torch.int64, device=dev)
         if p.domain_rand:
-            gdev = dev if generator is None else generator.device
             vis_seed = (draws["vis_seed"].to(dev, torch.int64) if draws is not None else
-                        torch.randint(0, VIS_SEED_HIGH, (b,), generator=generator,
-                                      device=gdev).to(dev))
+                        self._draw(torch.randint, generator, (b,), 0, VIS_SEED_HIGH))
         state = EnvState(
             phys=phys, pc=create_pc_state(b, p.pc_capacity, dev), obj_idx=obj_idx,
             env_step=torch.zeros(b, dtype=torch.int32, device=dev),

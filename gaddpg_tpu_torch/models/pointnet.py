@@ -19,7 +19,10 @@ Train (`train=True`): every BatchNorm normalises with its batch
 statistics. Grouped levels run K1 -> K2 -> `sa_train_fused` (K5, one
 pass per layer and a pooling pass), the group-all level
 `groupall_train_fused` (K6, one launch per layer and a pooling pass),
-and the FC trunk uses Flax's arithmetic (fast variance clamped at 0). The train forward does not touch the running statistics: it returns
+and the FC trunk uses Flax's arithmetic (fast variance clamped at 0).
+Under a data-parallel mesh (`mesh=`, `parallel.mesh`) every one of
+these statistics is over every rank's rows (`ops.sa_train.batch_moments`).
+The train forward does not touch the running statistics: it returns
 each BatchNorm's batch (mean, var), and the caller folds the ones it
 keeps in with `PointNetEncoder.update_running_stats`, as the JAX update
 keeps the statistics of two of its five encoder forwards. The modules'
@@ -39,7 +42,7 @@ import torch
 from torch import nn
 
 from gaddpg_tpu_torch.ops.sa import folded_sa_weights, mlp_maxpool, sa_gather_mlp
-from gaddpg_tpu_torch.ops.sa_train import groupall_train_fused, sa_train_fused
+from gaddpg_tpu_torch.ops.sa_train import batch_moments, groupall_train_fused, sa_train_fused
 from gaddpg_tpu_torch.ops.sampling import ball_query, furthest_point_sampling, gather_points
 
 BN_EPS = 1e-5
@@ -47,12 +50,13 @@ BN_EPS = 1e-5
 BN_MOMENTUM = 0.9
 
 
-def batch_norm_train(bn: nn.BatchNorm1d, x):
+def batch_norm_train(bn: nn.BatchNorm1d, x, mesh=None):
     """Train BatchNorm over axis 0 with Flax's arithmetic (fast variance,
-    clamped at 0): (x - mean) * (rsqrt(var + eps) * scale) + bias.
+    clamped at 0): (x - mean) * (rsqrt(var + eps) * scale) + bias, the
+    statistics over every rank's rows with a data-parallel `mesh`.
     Returns (y, mean, var)."""
-    m = x.mean(dim=0)
-    v = torch.clamp((x * x).mean(dim=0) - m * m, min=0.0)
+    m, v = batch_moments(x, (0,), mesh)
+    v = torch.clamp(v, min=0.0)
     return (x - m) * (torch.rsqrt(v + bn.eps) * bn.weight) + bn.bias, m, v
 
 
@@ -106,10 +110,11 @@ class SetAbstraction(nn.Module):
         self.dense = nn.ModuleList(nn.Linear(a, b) for a, b in zip(widths, widths[1:]))
         self.norms = nn.ModuleList(_batch_norm(c) for c in mlp)
 
-    def forward(self, xyz, feats, train: bool = False):
+    def forward(self, xyz, feats, train: bool = False, mesh=None):
         """xyz (B, N, 3); feats (B, N, C) -> (B, S, 3), (B, S, mlp[-1]),
         and with train=True also the three BatchNorms' batch
-        ((mean, var),) * 3, detached."""
+        ((mean, var),) * 3, detached (over every rank's rows with a
+        data-parallel `mesh`)."""
         full = torch.cat([xyz, feats], dim=-1)  # (B, N, 3 + C)
         if train:
             dense = tuple((d.weight.t().contiguous(), d.bias, bn.weight, bn.bias)
@@ -119,7 +124,7 @@ class SetAbstraction(nn.Module):
         if self.group_all:
             new_xyz = xyz.new_zeros((xyz.shape[0], 1, 3))
             if train:
-                return (new_xyz, *groupall_train_fused(full, dense))
+                return (new_xyz, *groupall_train_fused(full, dense, mesh))
             return new_xyz, mlp_maxpool(full, weights)
         xyz = xyz.detach().contiguous()
         centers = furthest_point_sampling(xyz, self.npoint)
@@ -128,7 +133,7 @@ class SetAbstraction(nn.Module):
         # centre offsets for the gathered rows: xyz in cols 0:3, zero elsewhere
         cpad = nn.functional.pad(new_xyz, (0, full.shape[-1] - 3))
         if train:
-            return (new_xyz, *sa_train_fused(group_idx, full, cpad, dense))
+            return (new_xyz, *sa_train_fused(group_idx, full, cpad, dense, mesh))
         return new_xyz, sa_gather_mlp(group_idx, full, cpad, weights)
 
 
@@ -152,15 +157,16 @@ class PointNetEncoder(nn.Module):
         self.fc = nn.ModuleList([nn.Linear(512 * s, 1024 * s), nn.Linear(1024 * s, 512 * s)])
         self.fc_norms = nn.ModuleList([_batch_norm(1024 * s), _batch_norm(512 * s)])
 
-    def forward(self, pc, train: bool = False):
+    def forward(self, pc, train: bool = False, mesh=None):
         """pc (B, N, C): columns 0:3 xyz, rest extra channels -> (B, 512s);
         with train=True -> ((B, 512s), [(mean, var)] of every BatchNorm in
-        the order of `batch_norms`, detached)."""
+        the order of `batch_norms`, detached; over every rank's rows with
+        a data-parallel `mesh`)."""
         xyz, feats = pc[..., :3], pc
         stats = []
         for sa in self.sa:
             if train:
-                xyz, feats, level_stats = sa(xyz, feats, train=True)
+                xyz, feats, level_stats = sa(xyz, feats, train=True, mesh=mesh)
                 stats += level_stats
             else:
                 xyz, feats = sa(xyz, feats)
@@ -168,7 +174,7 @@ class PointNetEncoder(nn.Module):
         for fc, bn in zip(self.fc, self.fc_norms):
             z = dense(fc, h, self.compute_dtype)
             if train:
-                h, m, v = batch_norm_train(bn, z)
+                h, m, v = batch_norm_train(bn, z, mesh)
                 stats.append((m.detach(), v.detach()))
                 h = torch.relu(h)
             else:
@@ -208,17 +214,18 @@ class PointNetFeature(nn.Module):
         # (B, C, N) -> drop hand anchor points -> (B, N', C_keep)
         return point_state[:, :channels, self.num_hand_points:].transpose(1, 2)
 
-    def forward(self, point_state, action=None, value: bool = False, train: bool = False):
+    def forward(self, point_state, action=None, value: bool = False, train: bool = False,
+                mesh=None):
         """point_state (B, 4, 1030); action (B, 6) for the value path.
         Returns the encoder's output (with train=True, also its batch
-        statistics)."""
+        statistics, over every rank's rows with a data-parallel `mesh`)."""
         if value:
             pc = point_state
             if action is not None:
                 tiled = action[:, :, None].expand(*action.shape, point_state.shape[-1])
                 pc = torch.cat([pc, tiled], dim=1)
-            return self.value_encoder(self._prep(pc, self.value_in), train)
-        return self.encoder(self._prep(point_state, self.policy_in), train)
+            return self.value_encoder(self._prep(pc, self.value_in), train, mesh)
+        return self.encoder(self._prep(point_state, self.policy_in), train, mesh)
 
 
 class GoalFeature(nn.Module):

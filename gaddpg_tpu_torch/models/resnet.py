@@ -148,9 +148,15 @@ class ImageFeature(nn.Module):
         self.encoder = ResNet18Feature()
         self.value_encoder = ResNet18Feature()
 
-    def forward(self, image, action=None, value: bool = False, train: bool = False):
+    def forward(self, image, action=None, value: bool = False, train: bool = False,
+                mesh=None):
         """image (B, 5, H, W); action (B, 6) for the value path. Returns
-        the encoder's output (with train=True, also its batch statistics)."""
+        the encoder's output (with train=True, also its batch statistics).
+        A data-parallel `mesh` raises: the ResNet-18's BatchNorms do not
+        reduce their statistics across ranks yet (ROADMAP.md, Queue 1)."""
+        if mesh is not None:
+            raise NotImplementedError("image mode under a data-parallel mesh is not ported yet "
+                                      "(ROADMAP.md, Queue 1: the ResNet-18's BatchNorms)")
         if not value:
             return self.encoder(image, train)
         out = self.value_encoder(image, train)

@@ -42,9 +42,10 @@ SIGNATURES = {
     "sa_gather_mlp": ("sa_gather_mlp", "gaddpg_sa_gather_mlp", (_P,) * 11 + (_I,) * 8 + (_P,)),
     "mlp_maxpool": ("mlp_maxpool", "gaddpg_mlp_maxpool", (_P,) * 6 + (_I,) * 4 + (_P,)),
     "sa_train_layer": ("sa_train_stats", "gaddpg_sa_train_layer",
-                       (_P,) * 17 + (_I,) * 7 + (_P,)),
+                       (_P,) * 18 + (_I,) * 7 + (_P,)),
+    "bn_from_sums": ("sa_train_stats", "gaddpg_bn_from_sums", (_P,) * 7 + (_I,) + (_P,)),
     "sa_train_pool": ("sa_train_stats", "gaddpg_sa_train_pool", (_P,) * 5 + (_I,) * 4 + (_P,)),
-    "groupall_layer": ("groupall_layer", "gaddpg_groupall_layer", (_P,) * 13 + (_I,) * 4 + (_P,)),
+    "groupall_layer": ("groupall_layer", "gaddpg_groupall_layer", (_P,) * 14 + (_I,) * 4 + (_P,)),
     "weight_pack": ("groupall_layer", "gaddpg_weight_pack", (_P, _I, _I, _P, _P)),
     "groupall_pool": ("groupall_layer", "gaddpg_groupall_pool", (_P,) * 4 + (_I,) * 3 + (_P,)),
     "contact_scan": ("contact_scan", "gaddpg_contact_scan", (_P,) * 10 + (_I,) * 4 + (_P,)),

@@ -282,12 +282,15 @@ __global__ void __launch_bounds__(kPoolThreads) groupall_pool_kernel(
 // a scratch of ceil(rows / 128) * 2 * cout floats, or null for no
 // statistics; with partial, mean, var (cout,) the statistics over the
 // rows, and ga, gc (cout,) their BatchNorm affine for the BatchNorm's
-// bn_scale, bn_bias (cout,). All float32 contiguous.
+// bn_scale, bn_bias (cout,); or, with `sums` (2 * cout + 1 doubles), the
+// sums of z and z^2 and the row count there instead, for a reduction
+// across ranks that gaddpg_bn_from_sums (sa_train_stats.cu) finishes. All
+// float32 contiguous.
 extern "C" int gaddpg_groupall_layer(const void* x, const void* a, const void* c,
                                      const void* wpack, const void* bias, void* z,
                                      void* partial, void* mean, void* var, const void* bn_scale,
-                                     const void* bn_bias, void* ga, void* gc, int rows, int cin,
-                                     int cout, int relu, void* stream) {
+                                     const void* bn_bias, void* ga, void* gc, void* sums,
+                                     int rows, int cin, int cout, int relu, void* stream) {
   if (rows < 0 || cin < 1 || cout < 1 || (a == nullptr) != (c == nullptr) ||
       (a != nullptr && !relu) ||
       reinterpret_cast<uintptr_t>(wpack) % 16) {
@@ -317,7 +320,8 @@ extern "C" int gaddpg_groupall_layer(const void* x, const void* a, const void* c
   const BnAffine bn{static_cast<const float*>(bn_scale), static_cast<const float*>(bn_bias),
                     static_cast<float*>(ga), static_cast<float*>(gc)};
   return launch_reduce_stats(p.partial, tiles, nullptr, 1, cout, static_cast<double>(rows),
-                             static_cast<float*>(mean), static_cast<float*>(var), bn, st);
+                             static_cast<float*>(mean), static_cast<float*>(var), bn,
+                             static_cast<double*>(sums), st);
 }
 
 // w (cin, cout) float32 row-major -> out, the layer's weight stream:

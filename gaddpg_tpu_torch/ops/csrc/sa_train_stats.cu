@@ -121,15 +121,19 @@ __global__ void __launch_bounds__(kTileThreads) sa_train_pool_kernel(
 // 2*b*s + 1 + 3*b*s*k ints, laid out by the layer-1 pass and read by the
 // later ones; mean, var (cout,) the outputs, over all b*s*k slots, and
 // ga, gc (cout,) their BatchNorm affine for the BatchNorm's bn_scale,
-// bn_bias (cout,). All float32 contiguous. Returns cudaErrorInvalidValue for a width that is
+// bn_bias (cout,). With `sums` (2 * cout + 1 doubles) the reduction
+// writes this call's sums of z and z^2 and its slot count there instead
+// of mean, var, ga and gc, for a reduction across ranks that
+// gaddpg_bn_from_sums finishes. All float32 contiguous. Returns cudaErrorInvalidValue for a width that is
 // not a multiple of 8, an input (layers 2, 3) wider than 256, or
 // unaligned weights; cout may be wider (column passes).
 extern "C" int gaddpg_sa_train_layer(const void* idx, const void* full, const void* cpad,
                                      const void* zin, const void* a, const void* c,
                                      const void* w, const void* b, void* zout, void* partial,
                                      void* rows, void* mean, void* var, const void* bn_scale,
-                                     const void* bn_bias, void* ga, void* gc, int batch, int s,
-                                     int k, int n, int cin, int cout, int layer, void* stream) {
+                                     const void* bn_bias, void* ga, void* gc, void* sums,
+                                     int batch, int s, int k, int n, int cin, int cout, int layer,
+                                     void* stream) {
   if (layer < 1 || layer > 3 || cout % 8 || (layer > 1 && (cin % 8 || cin > kMaxWidth)) ||
       reinterpret_cast<uintptr_t>(w) % 16) {
     return cudaErrorInvalidValue;
@@ -159,7 +163,27 @@ extern "C" int gaddpg_sa_train_layer(const void* idx, const void* full, const vo
                     static_cast<float*>(ga), static_cast<float*>(gc)};
   return launch_reduce_stats(static_cast<const float*>(partial), 0, list.start + groups,
                              kRowTile, cout, static_cast<double>(groups) * k,
-                             static_cast<float*>(mean), static_cast<float*>(var), bn, st);
+                             static_cast<float*>(mean), static_cast<float*>(var), bn,
+                             static_cast<double*>(sums), st);
+}
+
+// The second half of a layer split at the reduction (K5 and K6 under a
+// data-parallel mesh): sums (2 * cout + 1 doubles, the sums of z and z^2
+// over every rank's rows and their count, reduced across the ranks) ->
+// mean, var (cout,) and the BatchNorm affine ga, gc (cout,) for bn_scale,
+// bn_bias (cout,), with the arithmetic of the unsplit reduction.
+extern "C" int gaddpg_bn_from_sums(const void* sums, const void* bn_scale, const void* bn_bias,
+                                   void* mean, void* var, void* ga, void* gc, int cout,
+                                   void* stream) {
+  if (cout < 1) return cudaErrorInvalidValue;
+  const BnAffine bn{static_cast<const float*>(bn_scale), static_cast<const float*>(bn_bias),
+                    static_cast<float*>(ga), static_cast<float*>(gc)};
+  constexpr int kThreads = 256;
+  bn_from_sums_kernel<<<(cout + kThreads - 1) / kThreads, kThreads, 0,
+                        static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const double*>(sums), cout, static_cast<float*>(mean),
+      static_cast<float*>(var), bn);
+  return cudaGetLastError();
 }
 
 // K5's final pass: z (rows, cout) the layer-3 pass's z, a, c (cout,) its

@@ -23,6 +23,7 @@ Each wrapper counts its kernel launches in its `launches` attribute.
 import torch
 
 from gaddpg_tpu_torch.ops import build
+from gaddpg_tpu_torch.parallel.mesh import sum_over_ranks
 
 
 def fold_bn(kernel, bias, scale, bn_bias, mean, var, eps: float = 1e-5):
@@ -252,28 +253,45 @@ def _ptr(t):
     return 0 if t is None else t.data_ptr()
 
 
-def _engine_layer(x, w, bias, z, relu=False, affine=None, bn=None):
+def _engine_layer(x, w, bias, z, relu=False, affine=None, bn=None, mesh=None):
     """One layer of the group-all layer engine (csrc/groupall_layer.cu)
     over the rows of x (..., C_in): z (rows, C_out) = h @ w + bias, h = x,
     or with `relu` h = relu(x * a + c) for affine (a, c), relu(x) for
     affine None. With `bn`, the BatchNorm's (scale, bias), returns z's
     (mean, var) over the rows and their BatchNorm affine (a, c)
-    (ops/sa_train.py `bn_affine`), else None."""
+    (ops/sa_train.py `bn_affine`), else None; with a data-parallel `mesh`
+    too, over every rank's rows: the launch leaves its sums, which are
+    reduced across the ranks and finished by `bn_from_sums`."""
     cin, cout = w.shape
     rows = x.numel() // cin
     dev = x.device
     pack = layer_weight_pack(w)
     a, c = affine if affine is not None else (None, None)
-    partial = mean = var = a_next = c_next = None
+    partial = mean = var = a_next = c_next = sums = None
     if bn is not None:
         partial = torch.empty((-(-rows // ENGINE_ROWS), 2, cout), dtype=torch.float32, device=dev)
         mean, var, a_next, c_next = (torch.empty(cout, dtype=torch.float32, device=dev)
                                      for _ in range(4))
+        if mesh is not None:
+            sums = torch.empty(2 * cout + 1, dtype=torch.float64, device=dev)
     build.launch("groupall_layer", dev, x.data_ptr(), _ptr(a), _ptr(c), pack.data_ptr(),
                  bias.data_ptr(), z.data_ptr(), *(_ptr(t) for t in (partial, mean, var)),
                  *(_ptr(t) for t in (bn or (None, None))), _ptr(a_next), _ptr(c_next),
-                 rows, cin, cout, int(relu))
+                 _ptr(sums), rows, cin, cout, int(relu))
+    if sums is not None:
+        bn_from_sums(sum_over_ranks(mesh, sums), bn, mean, var, a_next, c_next)
     return None if bn is None else (mean, var, (a_next, c_next))
+
+
+def bn_from_sums(sums, bn, mean, var, a, c):
+    """mean, var and the BatchNorm affine (a, c) of `bn` = (scale, bias),
+    written in place from sums (2 * C + 1 doubles on the card: the sums of
+    z and z^2 over every rank's rows, then their count), with the
+    arithmetic of the kernels' own reduction (csrc/train_stats.cuh)."""
+    scale, bias = bn
+    build.launch("bn_from_sums", sums.device, sums.data_ptr(), scale.data_ptr(),
+                 bias.data_ptr(), mean.data_ptr(), var.data_ptr(), a.data_ptr(), c.data_ptr(),
+                 mean.shape[0])
 
 
 def _engine_pool(z, affine, b, n):
@@ -288,14 +306,15 @@ def _engine_pool(z, affine, b, n):
     return out
 
 
-def groupall_engine(full, weights, norms=None):
+def groupall_engine(full, weights, norms=None, mesh=None):
     """The layer engine over every row of full (B, N, C_in): the layers
     ((w, b),) * 3 one launch each, z_1 and z_3 in one scratch buffer and
     z_2 in another (layer i reads z_{i-1}), then the pool. With `norms`,
     the BatchNorms' ((scale, bias),) * 3, each layer's batch statistics
     and their affine feed the next layer and the pool (K6); without, no
     affine: layers 2 and 3 and the pool take relu(z) (K4's wide widths).
-    Returns pooled (B, 1, C3) and ((mean, var),) * 3 (empty without
+    With a data-parallel `mesh`, the statistics are those of every rank's
+    rows (`_engine_layer`). Returns pooled (B, 1, C3) and ((mean, var),) * 3 (empty without
     norms)."""
     b, n, _ = full.shape
     dev = full.device
@@ -306,7 +325,7 @@ def groupall_engine(full, weights, norms=None):
     for i, (w, bias) in enumerate(weights):
         z = bufs[i % 2][:b * n * w.shape[1]]
         out = _engine_layer(x, w, bias, z, relu=i > 0, affine=affine,
-                            bn=None if norms is None else norms[i])
+                            bn=None if norms is None else norms[i], mesh=mesh)
         if out is not None:
             mean, var, affine = out
             stats.append((mean, var))

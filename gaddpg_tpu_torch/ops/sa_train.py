@@ -27,6 +27,17 @@ with var = E[z^2] - mean^2 unclamped, as the JAX kernels compute it.
   recomputes layers 1..i-1 in stats pass i and all three in a final
   forward; this one computes each layer once, with no final forward.
 
+Under a data-parallel mesh (`parallel.mesh`; `mesh=` of both wrappers)
+each rank holds its share of the batch and every statistic is over the
+global batch, as the JAX package's sharded program computes it: each
+layer's launch leaves its per-rank sums of z and z^2 (weighted as above)
+with their row count, the sums are added across the ranks, and
+`ops.sa.bn_from_sums` turns them into the global mean, variance and
+affine that the next layer's launch reads z through. The plain versions
+take the same reduction through the differentiable `all_reduce_sum`, so
+the backward's recompute differentiates through the global statistics.
+Without a mesh nothing of this runs.
+
 Each is a `torch.autograd.Function`. Its backward is the JAX package's
 rule: it keeps only the inputs and differentiates the plain version
 (`sa_train_reference` / `groupall_train_reference`) recomputed under
@@ -43,8 +54,9 @@ import torch
 
 from gaddpg_tpu_torch.ops import build
 from gaddpg_tpu_torch.ops.sa import (
-    _check_widths, check_tile_widths, groupall_engine, row_list_ints,
+    _check_widths, bn_from_sums, check_tile_widths, groupall_engine, row_list_ints,
 )
+from gaddpg_tpu_torch.parallel.mesh import all_reduce_sum, sum_over_ranks
 
 BN_EPS = 1e-5
 ROW_TILE = 64  # rows of K5's tiles (csrc/sa_tile.cuh kRowTile): one partial sum each
@@ -56,24 +68,44 @@ def bn_affine(mean, var, scale, bias, eps: float = BN_EPS):
     return a, bias - mean * a
 
 
-def _train_mlp(h, dense, dims):
+def batch_moments(z, dims, mesh=None):
+    """(mean, E[z^2] - mean^2) of z over `dims`; with a data-parallel
+    `mesh`, over every rank's rows: the sums and the row count are added
+    across the ranks (differentiably) before the division."""
+    if mesh is None:
+        m = z.mean(dim=dims)
+        return m, (z * z).mean(dim=dims) - m * m
+    count = 1
+    for d in dims:
+        count *= z.shape[d]
+    local = torch.cat([z.sum(dim=dims), (z * z).sum(dim=dims),
+                       z.new_full((1,), float(count))])
+    total = all_reduce_sum(mesh, local)
+    c = z.shape[-1]
+    n = total[2 * c]
+    m = total[:c] / n
+    return m, total[c:2 * c] / n - m * m
+
+
+def _train_mlp(h, dense, dims, mesh=None):
     """3x (Dense -> BatchNorm with the statistics of its output over
-    `dims` -> ReLU) -> (h, ((mean, var),) * 3)."""
+    `dims`, and over every rank's rows with a `mesh` -> ReLU) ->
+    (h, ((mean, var),) * 3)."""
     stats = []
     for w, b, scale, bias in dense:
         z = h @ w + b
-        m = z.mean(dim=dims)
-        v = (z * z).mean(dim=dims) - m * m
+        m, v = batch_moments(z, dims, mesh)
         a, c = bn_affine(m, v, scale, bias)
         h = torch.relu(z * a + c)
         stats.append((m, v))
     return h, tuple(stats)
 
 
-def sa_train_reference(group_idx, full, cpad, dense):
+def sa_train_reference(group_idx, full, cpad, dense, mesh=None):
     """Plain train SA level: group_idx (B, S, K) int, full (B, N, C_in),
     cpad (B, S, C_in) centre offsets (xyz in cols 0:3, zero elsewhere) ->
-    pooled (B, S, C3), ((mean, var),) * 3 over B*S*K rows.
+    pooled (B, S, C3), ((mean, var),) * 3 over B*S*K rows (of every rank
+    with a data-parallel `mesh`).
 
     Computes layer by layer over every slot; the function is the same as
     the JAX package's `_xla_full`."""
@@ -81,15 +113,15 @@ def sa_train_reference(group_idx, full, cpad, dense):
     rows = torch.gather(
         full, 1, group_idx.reshape(b, s * k, 1).long().expand(-1, -1, full.shape[-1])
     ).reshape(b, s, k, -1)
-    h, stats = _train_mlp(rows - cpad[:, :, None, :], dense, (0, 1, 2))
+    h, stats = _train_mlp(rows - cpad[:, :, None, :], dense, (0, 1, 2), mesh)
     return h.amax(dim=2), stats
 
 
-def groupall_train_reference(full, dense):
+def groupall_train_reference(full, dense, mesh=None):
     """Plain train group-all level: full (B, N, C_in), not centred ->
-    pooled (B, 1, C3), ((mean, var),) * 3 over B*N rows (the JAX
-    package's `_xla_groupall_full`)."""
-    h, stats = _train_mlp(full, dense, (0, 1))
+    pooled (B, 1, C3), ((mean, var),) * 3 over B*N rows (of every rank
+    with a data-parallel `mesh`; the JAX package's `_xla_groupall_full`)."""
+    h, stats = _train_mlp(full, dense, (0, 1), mesh)
     return h.amax(dim=1, keepdim=True), stats
 
 
@@ -108,10 +140,12 @@ def _check_dense(name, dense, cin):
             raise ValueError(f"{name}: BatchNorm scale/bias must be float32 of shape ({c},)")
 
 
-def _sa_train_kernels(group_idx, full, cpad, dense):
+def _sa_train_kernels(group_idx, full, cpad, dense, mesh=None):
     """K5: the compacted row list (laid out by the layer-1 pass), one
     pass per layer and the pooling pass. Scratch is sized for every slot,
-    so nothing waits on the device for the count of distinct rows."""
+    so nothing waits on the device for the count of distinct rows. With
+    a data-parallel `mesh`, each pass leaves its sums, which are added
+    across the ranks and finished by `bn_from_sums` before the next pass."""
     b, s, k = group_idx.shape
     n, cin = full.shape[1:]
     check_tile_widths("sa_train_fused", [w for w, _, _, _ in dense])
@@ -130,12 +164,17 @@ def _sa_train_kernels(group_idx, full, cpad, dense):
         partial = torch.empty((tiles, 2, cout), dtype=torch.float32, device=dev)
         mean, var, a_next, c_next = (torch.empty(cout, dtype=torch.float32, device=dev)
                                      for _ in range(4))
+        sums = (None if mesh is None
+                else torch.empty(2 * cout + 1, dtype=torch.float64, device=dev))
         build.launch("sa_train_layer", dev, group_idx.data_ptr(), full.data_ptr(),
                      cpad.data_ptr(), *(0 if t is None else t.data_ptr() for t in (zin, a, c)),
                      w.data_ptr(), w_bias.data_ptr(), zout.data_ptr(), partial.data_ptr(),
                      rows.data_ptr(), mean.data_ptr(), var.data_ptr(), scale.data_ptr(),
-                     bias.data_ptr(), a_next.data_ptr(), c_next.data_ptr(), b, s, k, n,
+                     bias.data_ptr(), a_next.data_ptr(), c_next.data_ptr(),
+                     0 if sums is None else sums.data_ptr(), b, s, k, n,
                      widths[layer - 1], cout, layer)
+        if sums is not None:
+            bn_from_sums(sum_over_ranks(mesh, sums), (scale, bias), mean, var, a_next, c_next)
         a, c = a_next, c_next  # bn_affine of (mean, var), from the reduction
         stats.append((mean, var))
         zin = zout
@@ -146,12 +185,13 @@ def _sa_train_kernels(group_idx, full, cpad, dense):
     return pooled, tuple(stats)
 
 
-def _groupall_train_kernels(full, dense):
+def _groupall_train_kernels(full, dense, mesh=None):
     """K6: one layer-engine launch per layer over the B * N rows, each
-    with its statistics and their BatchNorm affine (the reduction's), the
-    next reading z back through that affine; then the pooling pass."""
+    with its statistics and their BatchNorm affine (the reduction's, over
+    every rank's rows with a `mesh`), the next reading z back through
+    that affine; then the pooling pass."""
     pooled, stats = groupall_engine(full, [(w, b) for w, b, _, _ in dense],
-                                    [(scale, bias) for _, _, scale, bias in dense])
+                                    [(scale, bias) for _, _, scale, bias in dense], mesh)
     groupall_train_fused.launches += 1
     return pooled, stats
 
@@ -175,12 +215,13 @@ def _grads(fn, inputs, needs, grad_out):
 
 class _SATrain(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, group_idx, full, cpad, *params):
+    def forward(ctx, mesh, group_idx, full, cpad, *params):
         dense = _dense(params)
         if full.device.type == "cpu":
-            pooled, stats = sa_train_reference(group_idx, full, cpad, dense)
+            pooled, stats = sa_train_reference(group_idx, full, cpad, dense, mesh)
         else:
-            pooled, stats = _sa_train_kernels(group_idx, full, cpad, dense)
+            pooled, stats = _sa_train_kernels(group_idx, full, cpad, dense, mesh)
+        ctx.mesh = mesh
         ctx.save_for_backward(group_idx, full, cpad, *params)
         flat = [t for mv in stats for t in mv]
         ctx.mark_non_differentiable(*flat)
@@ -191,19 +232,20 @@ class _SATrain(torch.autograd.Function):
         group_idx, *inputs = ctx.saved_tensors
 
         def pooled(full, cpad, *params):
-            return sa_train_reference(group_idx, full, cpad, _dense(params))[0]
+            return sa_train_reference(group_idx, full, cpad, _dense(params), ctx.mesh)[0]
 
-        return (None, *_grads(pooled, inputs, ctx.needs_input_grad[1:], grad_pooled))
+        return (None, None, *_grads(pooled, inputs, ctx.needs_input_grad[2:], grad_pooled))
 
 
 class _GroupAllTrain(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, full, *params):
+    def forward(ctx, mesh, full, *params):
         dense = _dense(params)
         if full.device.type == "cpu":
-            pooled, stats = groupall_train_reference(full, dense)
+            pooled, stats = groupall_train_reference(full, dense, mesh)
         else:
-            pooled, stats = _groupall_train_kernels(full, dense)
+            pooled, stats = _groupall_train_kernels(full, dense, mesh)
+        ctx.mesh = mesh
         ctx.save_for_backward(full, *params)
         flat = [t for mv in stats for t in mv]
         ctx.mark_non_differentiable(*flat)
@@ -212,9 +254,10 @@ class _GroupAllTrain(torch.autograd.Function):
     @staticmethod
     def backward(ctx, grad_pooled, *_):
         def pooled(full, *params):
-            return groupall_train_reference(full, _dense(params))[0]
+            return groupall_train_reference(full, _dense(params), ctx.mesh)[0]
 
-        return tuple(_grads(pooled, ctx.saved_tensors, ctx.needs_input_grad, grad_pooled))
+        return (None, *_grads(pooled, ctx.saved_tensors, ctx.needs_input_grad[1:],
+                              grad_pooled))
 
 
 def _unflatten(out):
@@ -222,7 +265,7 @@ def _unflatten(out):
     return pooled, tuple((flat[2 * i], flat[2 * i + 1]) for i in range(3))
 
 
-def sa_train_fused(group_idx, full, cpad, dense):
+def sa_train_fused(group_idx, full, cpad, dense, mesh=None):
     """Train SA level with batch-statistics BatchNorm: group_idx (B, S, K)
     int32 (indices in [0, N)), full (B, N, C_in), cpad (B, S, C_in), dense
     ((w, b, scale, bias),) * 3 -> pooled (B, S, C3), ((mean, var),) * 3.
@@ -230,7 +273,9 @@ def sa_train_fused(group_idx, full, cpad, dense):
     Differentiable in full, cpad and the 12 parameters (the backward
     recomputes `sa_train_reference`). CPU tensors: the plain version.
     CUDA tensors: the K5 kernels, each layer once over each group's
-    distinct slots."""
+    distinct slots. With a data-parallel `mesh` (`parallel.mesh`) the
+    statistics are over every rank's rows, in the forward and in the
+    backward's recompute."""
     b, s, _ = group_idx.shape
     cin = full.shape[-1]
     if (group_idx.dtype != torch.int32 or full.dtype != torch.float32
@@ -243,25 +288,27 @@ def sa_train_fused(group_idx, full, cpad, dense):
     _check_dense("sa_train_fused", dense, cin)
     flat = [t for layer in dense for t in layer]
     build.kernel_device("sa_train_fused", group_idx, full, cpad, *flat)
-    return _unflatten(_SATrain.apply(group_idx, full, cpad, *flat))
+    return _unflatten(_SATrain.apply(mesh, group_idx, full, cpad, *flat))
 
 
 sa_train_fused.launches = 0
 
 
-def groupall_train_fused(full, dense):
+def groupall_train_fused(full, dense, mesh=None):
     """Train group-all SA level: full (B, N, C_in) float32, not centred,
     dense ((w, b, scale, bias),) * 3 -> pooled (B, 1, C3),
     ((mean, var),) * 3.
 
     Differentiable in full and the 12 parameters. CPU tensors: the plain
-    version. CUDA tensors: the K6 layer engine, any widths."""
+    version. CUDA tensors: the K6 layer engine, any widths. With a
+    data-parallel `mesh`, statistics over every rank's rows, as in
+    `sa_train_fused`."""
     if full.dtype != torch.float32 or full.dim() != 3:
         raise ValueError(f"groupall_train_fused: full {full.dtype} {tuple(full.shape)}")
     _check_dense("groupall_train_fused", dense, full.shape[-1])
     flat = [t for layer in dense for t in layer]
     build.kernel_device("groupall_train_fused", full, *flat)
-    return _unflatten(_GroupAllTrain.apply(full, *flat))
+    return _unflatten(_GroupAllTrain.apply(mesh, full, *flat))
 
 
 groupall_train_fused.launches = 0

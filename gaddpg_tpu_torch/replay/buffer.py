@@ -19,6 +19,18 @@ validity mask to the host once, runs the sequential ring rule there
 (cheap: E integers), and writes every field with one indexed store whose
 rows keep the scan's outcome: where a later episode of the same call
 overwrites a slot, the later one is what the store writes.
+
+Under a data-parallel mesh (`create_buffer(..., mesh=)`) the ring shards
+on its capacity axis as the JAX package's `shard_leading_axis` lays it
+out: slot j of `point_state` and `image_state` lives on rank
+j // (size / n). The per-slot scalars, poses and actions (every other
+field, a few hundred bytes a slot) are replicated, so that every rank
+runs the ring rule and the next-state and episode-end lookups itself.
+`add_episodes` gathers every rank's masks and small fields and sends
+each rank the point rows its slots take (`all_to_all_rows`); `sample`
+draws the global indices on every rank alike, keeps this rank's B / n
+and fetches their points from the ranks that own them.
+`gather_buffer` returns the whole ring.
 """
 
 import dataclasses
@@ -28,6 +40,9 @@ import numpy as np
 import torch
 
 from gaddpg_tpu_torch.geometry.se3 import pack_pose_rot_first, se3_inverse
+from gaddpg_tpu_torch.parallel.mesh import (
+    all_gather_rows, all_to_all_rows, local_slice, validate_dp_divisibility, world_of,
+)
 from gaddpg_tpu_torch.utils.precision import f32_matmuls, resolve_device
 
 
@@ -55,10 +70,13 @@ class ReplayBuffer:
     cur_idx: int = 0               # next write position
     filled: int = 0                # high-water mark of live data
     total_env_step: int = 0
+    # the data-parallel mesh the capacity axis shards over (None: one rank)
+    mesh: object = None
 
     @property
     def size(self) -> int:
-        return self.point_state.shape[0]
+        """The ring's capacity (over every rank's shard)."""
+        return self.episode_map.shape[0]
 
     @property
     def is_full(self) -> bool:
@@ -75,20 +93,26 @@ class ReplayBuffer:
 
 
 TENSOR_FIELDS = tuple(f.name for f in dataclasses.fields(ReplayBuffer)
-                      if f.name not in ("cur_idx", "filled", "total_env_step"))
+                      if f.name not in ("cur_idx", "filled", "total_env_step", "mesh"))
+# the fields sharded on the capacity axis under a mesh; the others are replicated
+SHARDED_FIELDS = ("point_state", "image_state")
 
 
 def create_buffer(size: int, num_points: int = 1030, image_shape=None,
-                  device="cuda") -> ReplayBuffer:
+                  device="cuda", mesh=None) -> ReplayBuffer:
     """An empty float32 ring of `size` transitions on `device` (raises
     without a card unless device="cpu"). `image_shape` (C, H, W) enables
-    RGBDM storage, in bfloat16 as the JAX package stores it."""
+    RGBDM storage, in bfloat16 as the JAX package stores it. With a
+    data-parallel `mesh` (`size` a multiple of its ranks) this rank holds
+    its size / n slots of the point and image states."""
     device = resolve_device(device)
+    validate_dp_divisibility(mesh, buffer_size=size)
+    local = size // world_of(mesh)
     f = lambda *shape: torch.zeros(shape, dtype=torch.float32, device=device)  # noqa: E731
     return ReplayBuffer(
-        point_state=f(size, 4, num_points),
-        image_state=(torch.zeros((size, *image_shape), dtype=torch.bfloat16, device=device)
-                     if image_shape else f(size, 1, 1, 1)),
+        point_state=f(local, 4, num_points),
+        image_state=(torch.zeros((local, *image_shape), dtype=torch.bfloat16, device=device)
+                     if image_shape else f(local, 1, 1, 1)),
         action=f(size, 6),
         expert_action=f(size, 6),
         reward=f(size),
@@ -104,6 +128,7 @@ def create_buffer(size: int, num_points: int = 1030, image_shape=None,
         grasp=f(size),
         target_idx=f(size),
         episode_map=torch.zeros(size, dtype=torch.int64, device=device),
+        mesh=mesh,
     )
 
 
@@ -184,31 +209,114 @@ def add_episodes(buf: ReplayBuffer, episodes: Dict[str, torch.Tensor], valid: to
     slot. An episode never straddles the ring boundary: when it would
     not fit in [cur_idx, size) its write restarts at 0 (reference:
     core/replay_memory.py:193-199). Fields absent from `episodes` (e.g.
-    image_state in point-cloud runs) keep their contents."""
+    image_state in point-cloud runs) keep their contents. Under a mesh
+    the episodes are this rank's envs' (every rank calls it), inserted
+    as the envs of every rank in rank order."""
     valid = valid.to(buf.device, torch.bool)
-    e_count, t_count = valid.shape
+    mesh = buf.mesh
+    e_local, t_count = valid.shape
+    valid = all_gather_rows(mesh, valid)
+    e_count = valid.shape[0]
     src, pos, dst, end, cursors = _ring_rows(buf, valid.cpu().numpy())
     dev = buf.device
-    src, pos, dst, end = (torch.as_tensor(a, dtype=torch.int64).to(dev)
-                          for a in (src, pos, dst, end))
+    d_src, d_pos, d_dst, d_end = (torch.as_tensor(a, dtype=torch.int64).to(dev)
+                                  for a in (src, pos, dst, end))
 
-    seq = {"reward": episodes["reward"].to(dev, torch.float32)}
-    if "collide" in episodes:
-        seq["collide"] = episodes["collide"].to(dev, torch.float32)
+    small = {k: episodes[k] for k in _EP_FIELDS if k in episodes and k not in SHARDED_FIELDS}
+    small = _gather_fields(mesh, small, e_local, t_count)
+    seq = {"reward": small["reward"].to(dev, torch.float32)}
+    if "collide" in small:
+        seq["collide"] = small["collide"].to(dev, torch.float32)
     derived = _compact_sequences(seq, valid, gamma)
 
-    for k in _EP_FIELDS:
+    for k, x in small.items():
+        flat = x.reshape(e_count * t_count, *x.shape[2:])
+        target = getattr(buf, k)
+        target[d_dst] = flat.to(dev)[d_src].to(target.dtype)
+    for k in SHARDED_FIELDS:
         if k in episodes:
             x = episodes[k]
-            flat = x.reshape(e_count * t_count, *x.shape[2:])
-            target = getattr(buf, k)
-            target[dst] = flat.to(dev)[src].to(target.dtype)
+            _store_rows(buf, getattr(buf, k), x.reshape(e_local * t_count, *x.shape[2:]),
+                        src, dst, e_local * t_count)
     for k, v in derived.items():
         target = getattr(buf, k)
-        target[dst] = v.reshape(-1)[pos].to(target.dtype)
-    buf.episode_map[dst] = end
+        target[d_dst] = v.reshape(-1)[d_pos].to(target.dtype)
+    buf.episode_map[d_dst] = d_end
     buf.cur_idx, buf.filled, buf.total_env_step = cursors
     return buf
+
+
+def _gather_fields(mesh, fields: Dict[str, torch.Tensor], e_local: int, t_count: int):
+    """Every rank's (E_local, T, ...) fields concatenated in rank order
+    (one all-gather of their float32 columns under a mesh)."""
+    if mesh is None or not fields:
+        return fields
+    cols = {k: v.reshape(e_local, t_count, -1) for k, v in fields.items()}
+    packed = torch.cat([c.to(torch.float32) for c in cols.values()], dim=-1)
+    packed = all_gather_rows(mesh, packed)
+    out, offset = {}, 0
+    for k, c in cols.items():
+        width = c.shape[-1]
+        x = packed[..., offset:offset + width]
+        out[k] = x.reshape(packed.shape[0], t_count, *fields[k].shape[2:]).to(fields[k].dtype)
+        offset += width
+    return out
+
+
+def _store_rows(buf: ReplayBuffer, target: torch.Tensor, rows: torch.Tensor, src, dst,
+                rows_per_rank: int):
+    """target[dst - shard start] = row src of the episodes' flattened rows,
+    for the slots in this rank's shard. Under a mesh `rows` are this
+    rank's envs' (rows_per_rank of them) and each goes to the rank that
+    owns its slot."""
+    dev = target.device
+    mesh = buf.mesh
+    if mesh is None:
+        d_src, d_dst = (torch.as_tensor(a, dtype=torch.int64).to(dev) for a in (src, dst))
+        target[d_dst] = rows.to(dev)[d_src].to(target.dtype)
+        return
+    local = buf.size // mesh.world
+    src_rank, dst_rank = src // rows_per_rank, dst // local
+    mine = src_rank == mesh.rank
+    # the rows this rank sends, grouped by the rank that stores them
+    order = np.flatnonzero(mine)[np.argsort(dst_rank[mine], kind="stable")]
+    send_counts = np.bincount(dst_rank[mine], minlength=mesh.world)
+    recv = dst_rank == mesh.rank
+    recv_counts = np.bincount(src_rank[recv], minlength=mesh.world)
+    send_idx = torch.as_tensor(src[order] - mesh.rank * rows_per_rank).to(dev)
+    got = all_to_all_rows(mesh, rows.to(dev)[send_idx].to(target.dtype), send_counts,
+                          recv_counts)
+    # received in order of the sending rank, each block in insert order
+    slots = np.concatenate([dst[recv & (src_rank == q)] for q in range(mesh.world)])
+    target[torch.as_tensor(slots - mesh.rank * local).to(dev)] = got
+
+
+def gather_buffer(buf: ReplayBuffer) -> Dict[str, torch.Tensor]:
+    """The whole ring as one tensor per field (every rank calls it under a
+    mesh; the sharded fields are gathered from every rank)."""
+    return {k: all_gather_rows(buf.mesh, getattr(buf, k)) if k in SHARDED_FIELDS
+            else getattr(buf, k) for k in TENSOR_FIELDS}
+
+
+def _fetch_rows(buf: ReplayBuffer, field: torch.Tensor, want: np.ndarray) -> torch.Tensor:
+    """Rows `want` (every rank's requests, (n, per_rank) slots, the same
+    array on every rank) of a sharded field: each rank gets its own
+    request row's slots from the ranks that own them."""
+    mesh = buf.mesh
+    dev = field.device
+    local = buf.size // mesh.world
+    owner = want // local
+    me = mesh.rank
+    send = [np.flatnonzero(owner[q] == me) for q in range(mesh.world)]
+    send_slots = np.concatenate([want[q][i] for q, i in enumerate(send)]) - me * local
+    rows = field[torch.as_tensor(send_slots).to(dev)]
+    recv_counts = [int((owner[me] == q).sum()) for q in range(mesh.world)]
+    got = all_to_all_rows(mesh, rows, [len(i) for i in send], recv_counts)
+    # put the rows back in request order: block q holds the slots rank q owns
+    order = np.concatenate([np.flatnonzero(owner[me] == q) for q in range(mesh.world)])
+    out = torch.empty_like(got)
+    out[torch.as_tensor(order).to(dev)] = got
+    return out
 
 
 def add_episode(buf: ReplayBuffer, episode: Dict[str, torch.Tensor], valid: torch.Tensor,
@@ -231,17 +339,31 @@ def sample(buf: ReplayBuffer, batch_size: int, episode_max_len: int = 20,
     :251-272). The indices are drawn in [lo, upper) with lo =
     min(episode_max_len, upper - 1), from `generator` (a generator of the
     buffer's device; None = torch's default one), unless given as `idx`
-    (batch_size,) integers."""
+    (batch_size,) integers. Under a mesh `batch_size` and `idx` are the
+    global batch's, drawn alike on every rank, and the rows returned are
+    this rank's batch_size / n of them."""
     upper = upper_idx(buf)
     lo = min(episode_max_len, upper - 1)
     dev = buf.device
+    mesh = buf.mesh
     if idx is None:
         idx = torch.randint(0, max(upper - lo, 1), (batch_size,), generator=generator,
                             device=dev) + lo
     else:
         idx = torch.as_tensor(idx).to(dev, torch.int64)
+    nxt_all = torch.minimum(buf.episode_map[idx], idx + 1)
+    mine = local_slice(mesh, idx.shape[0])
+    if mesh is None:
+        point_rows, next_point_rows = buf.point_state[idx], buf.point_state[nxt_all]
+    else:
+        # the global idx and nxt of every rank's rows, fetched from their owners
+        n = mesh.world
+        want = np.concatenate([idx.cpu().numpy().reshape(n, -1),
+                               nxt_all.cpu().numpy().reshape(n, -1)], axis=1)
+        both = _fetch_rows(buf, buf.point_state, want)
+        point_rows, next_point_rows = both.chunk(2)
+    idx, nxt = idx[mine], nxt_all[mine]
     ep_end = buf.episode_map[idx]
-    nxt = torch.minimum(ep_end, idx + 1)
 
     goal = buf.goal[idx]
     next_goal = buf.goal[nxt]
@@ -256,11 +378,14 @@ def sample(buf: ReplayBuffer, batch_size: int, episode_max_len: int = 20,
 
     out = {}
     if buf.image_state.shape[-1] > 1:  # image storage enabled
+        if mesh is not None:
+            raise NotImplementedError("image mode under a data-parallel mesh is not ported yet "
+                                      "(ROADMAP.md, Queue 1)")
         out = {"image_state": buf.image_state[idx].to(torch.float32),
                "next_image_state": buf.image_state[nxt].to(torch.float32)}
     out.update({
-        "point_state": buf.point_state[idx],
-        "next_point_state": buf.point_state[nxt],
+        "point_state": point_rows,
+        "next_point_state": next_point_rows,
         "action": buf.action[idx],
         "expert_action": buf.expert_action[idx],
         "next_action": buf.action[nxt],

@@ -32,7 +32,10 @@ def save_npz(buf: ReplayBuffer, path: str):
     """Dump the buffer's live transitions (the reference dumps full
     preallocated arrays, which makes mostly empty multi-GB files; the
     loader accepts either). `episode_map` is saved as uint32, as the JAX
-    package stores it."""
+    package stores it. A ring sharded over a mesh raises: each rank holds
+    only its slots' points."""
+    if buf.mesh is not None:
+        raise ValueError("save_npz takes a one-rank ring, not a shard of a sharded one")
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     n = max(int(buf.filled), 1)
     save = {k: _numpy(getattr(buf, k)[:n]) for k in _SAVE_KEYS}

@@ -31,12 +31,20 @@ per-env masked selects. Every random draw comes from a
                ... one per step]}
 
 `evaluate` takes {"reset": ..., "steps": [{"env": ...}, ...]}.
+
+Under a data-parallel mesh (`RolloutWorker(mesh=)`, with an env built on
+the same mesh) each rank runs num_envs / n envs: every draw is made for
+the global batch and sliced (`parallel.mesh.draw_rows`), and `draws` are
+the global batch's, sliced the same way, so that rank r's envs are envs
+[r * N / n, (r + 1) * N / n) of the one-rank run. The results are this
+rank's envs'.
 """
 
 import torch
 
 from gaddpg_tpu_torch.agents.ddpg import exploration_noise, make_select_action
 from gaddpg_tpu_torch.envs.grasp_env import PandaGraspEnv, _where
+from gaddpg_tpu_torch.parallel.mesh import shard_leading_axis, validate_dp_divisibility, world_of
 from gaddpg_tpu_torch.utils.precision import resolve_device
 
 # half-widths of the DART perturbation box (reference: env/panda_scene.py:1069-1076)
@@ -47,12 +55,17 @@ class RolloutWorker:
     """Env + policy selection as batched rollout and evaluation programs."""
 
     def __init__(self, env: PandaGraspEnv, agent_cfg, train_cfg, mesh=None, device="cuda"):
-        if mesh is not None:
-            raise NotImplementedError("a device mesh (multi-GPU data parallel) is not ported "
-                                      "yet; pass mesh=None")
+        validate_dp_divisibility(mesh, num_envs=train_cfg.num_envs)
+        if mesh is not None and agent_cfg.use_image:
+            raise NotImplementedError("image mode under a data-parallel mesh is not ported yet "
+                                      "(ROADMAP.md, Queue 1: the ResNet-18's BatchNorms)")
         self.device = resolve_device(device)
         if env.device != self.device:
             raise ValueError(f"env is on {env.device}, the rollout on {self.device}")
+        if env.mesh is not mesh:
+            raise ValueError("the env and the rollout must be built on the same mesh")
+        self.mesh = mesh
+        self.num_envs = train_cfg.num_envs // world_of(mesh)  # this rank's
         self.env = env
         self.cfg = train_cfg
         self.agent_cfg = agent_cfg
@@ -64,9 +77,13 @@ class RolloutWorker:
         return obs.image if self.agent_cfg.use_image else obs.point_state
 
     # ------------------------------------------------------------------
+    def _draw(self, fn, generator, shape, *bounds):
+        """As the env draws (`PandaGraspEnv._draw`: this rank's rows under
+        a mesh); the env is on this rollout's device and mesh."""
+        return self.env._draw(fn, generator, shape, *bounds)
+
     def _rand(self, generator, shape):
-        dev = self.device if generator is None else generator.device
-        return torch.rand(shape, generator=generator, device=dev).to(self.device)
+        return self._draw(torch.rand, generator, shape)
 
     def _step_draws(self, generator, draws, t, n):
         """(noise raw draws, dagger uniforms, DART uniforms, perturbation,
@@ -78,8 +95,7 @@ class RolloutWorker:
         if self.agent_cfg.noise_type == "uniform":
             noise = self._rand(generator, (n, 6))
         else:
-            dev = self.device if generator is None else generator.device
-            noise = torch.randn((n, 6), generator=generator, device=dev).to(self.device)
+            noise = self._draw(torch.randn, generator, (n, 6))
         dagger_u, dart_u = self._rand(generator, (n,)), self._rand(generator, (n,))
         high = torch.tensor(PERTURB_HIGH, device=self.device)
         perturb = (self._rand(generator, (n, 6)) * 2.0 - 1.0) * high
@@ -87,9 +103,11 @@ class RolloutWorker:
 
     @torch.no_grad()
     def rollout(self, agent_state, explore_frac, noise_scale, generator=None, draws=None):
-        """Returns (episodes (N, T, ...), valid (N, T), rewards (N,), stats)."""
+        """Returns (episodes (N, T, ...), valid (N, T), rewards (N,), stats),
+        N this rank's envs."""
         cfg, env, dev = self.cfg, self.env, self.device
-        n = cfg.num_envs
+        n = self.num_envs
+        draws = shard_leading_axis(self.mesh, draws)
         horizon = cfg.rollout_horizon
         explore_frac, noise_scale = float(explore_frac), float(noise_scale)
 
@@ -101,10 +119,9 @@ class RolloutWorker:
             expert_init_steps = draws["expert_init_steps"].to(dev, torch.int64)
         else:
             explore_u = self._rand(generator, (n,))
-            gdev = dev if generator is None else generator.device
-            expert_init_steps = torch.randint(
-                cfg.expert_init_min_step, max(cfg.expert_init_max_step, 1), (n,),
-                generator=generator, device=gdev).to(dev)
+            expert_init_steps = self._draw(torch.randint, generator, (n,),
+                                           cfg.expert_init_min_step,
+                                           max(cfg.expert_init_max_step, 1))
         explore_env = explore_u < explore_frac
         plan_len = env.expert_steps(states)
 
@@ -222,7 +239,8 @@ class RolloutWorker:
         """Policy evaluation on freshly randomised scenes; with `expert`,
         the expert's (the reference's --expert A/B baseline,
         reference: core/train_test_offline.py:208-223)."""
-        states, obs = self.env.reset(self.cfg.num_envs, generator,
+        draws = shard_leading_axis(self.mesh, draws)
+        states, obs = self.env.reset(self.num_envs, generator,
                                      None if draws is None else draws["reset"])
         return self._eval_from(agent_state, states, obs, generator, draws, expert)
 
@@ -230,13 +248,14 @@ class RolloutWorker:
     def evaluate_scenes(self, agent_state, scenes, generator=None, expert=False):
         """Policy (or, with `expert`, expert) evaluation on a fixed scene
         set of num_envs scenes (envs/scenes.py), the reproducible protocol
-        (reference: core/train_test_offline.py:176-256)."""
-        states, obs = self.env.reset_scene(scenes, generator)
+        (reference: core/train_test_offline.py:176-256); under a mesh this
+        rank's share of them."""
+        states, obs = self.env.reset_scene(shard_leading_axis(self.mesh, scenes), generator)
         return self._eval_from(agent_state, states, obs, generator, expert=expert)
 
     def _eval_from(self, agent_state, states, obs, generator=None, draws=None, expert=False):
         cfg, env, dev = self.cfg, self.env, self.device
-        n = cfg.num_envs
+        n = self.num_envs
         valid_scene = states.valid_scene
         if cfg.eval_time_mode == "steps":
             # deployment convention: episode step budget countdown

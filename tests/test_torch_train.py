@@ -45,6 +45,7 @@ from gaddpg_tpu.train.rollout import RolloutWorker as JaxRolloutWorker
 from gaddpg_tpu_torch.agents import AgentConfig, from_flax
 from gaddpg_tpu_torch.envs.assets import LIBRARY_FIELDS, box_asset, library_from_arrays
 from gaddpg_tpu_torch.envs.grasp_env import EnvParams, Observation, PandaGraspEnv
+from gaddpg_tpu_torch.parallel import Mesh
 from gaddpg_tpu_torch.physics.types import PhysicsParams
 from gaddpg_tpu_torch.render.camera import CameraParams
 from gaddpg_tpu_torch.train import (
@@ -454,12 +455,17 @@ def test_trainer_evaluate(trainer):
 
 
 def test_unported_options_raise(tmp_path):
+    """A mesh is ported (tests/test_torch_dp_*.py); image mode under one is
+    not, and says so before anything is built."""
     lib = box_asset(0.06, 0.06, 0.14)
+    mesh = Mesh(world=2, rank=0, device=torch.device("cpu"))
+    cfg = dryrun_config(tmp_path)
+    image_cfg = dataclasses.replace(cfg, agent=dataclasses.replace(cfg.agent, use_image=True))
     with pytest.raises(NotImplementedError, match="mesh"):
-        Trainer(dryrun_config(tmp_path), lib=lib, mesh=object(), device="cpu")
-    tr = Trainer(dryrun_config(tmp_path), lib=lib, device="cpu")
+        Trainer(image_cfg, lib=lib, mesh=mesh, device="cpu")
+    tr = Trainer(cfg, lib=lib, device="cpu")
     with pytest.raises(NotImplementedError, match="mesh"):
-        RolloutWorker(tr.env, tr.cfg.agent, tr.cfg, mesh=object(), device="cpu")
+        RolloutWorker(tr.env, image_cfg.agent, tr.cfg, mesh=mesh, device="cpu")
     # image mode is ported (tests/test_torch_image_agent.py)
     worker = RolloutWorker(tr.env, dataclasses.replace(tr.cfg.agent, use_image=True), tr.cfg,
                            device="cpu")
