@@ -23,6 +23,8 @@ Phases, each of which must pass:
      more than 32 chunks; 13 centres; 13 slots; far centres whose nearest
      point is repeated; an integer grid; r = 0; all drawn from a generator
      of K2_SEED's), indices exactly equal and two launches bit-identical;
+     FPS and ball query with an all-true `valid=` mask at B=8 (the plain
+     version on the card, no launch) equal to K1's and K2's indices;
      K5/K6 (`sa_train_fused`,
      `groupall_train_fused`) at the learner's shapes (policy SA1, value
      SA1, SA2, SA3): pooled output and batch statistics within 1e-4,
@@ -262,7 +264,20 @@ Phases, each of which must pass:
      (512 a rank, EnvParams() with the planner, 4 updates), counted
      (each rank's launches equal to phase 11's per-iteration counts) and
      timed (the rank's first, cold iteration: the collect's split, env
-     steps/s); the fast dry-run tier against 1 rank on the
+     steps/s); image mode on the ranks: ImageFeature's train forward at
+     B=256, 112 x 112 (both ResNet-18s, their 20 BatchNorms each
+     reduced across the ranks) against the whole-batch forward here by
+     IMAGE_FEATURE_TOL["train"] (outputs and every statistic) and phase
+     2's gradient rule, two split forwards bit-identical, timed beside
+     the whole batch's; the sharded image DDPG and BC updates at batch
+     256 from carried Adam moments against the update without a mesh
+     (phase 6's rule, every rank's state bit-identical, times and the
+     collectives' share); one load_config(use_image, domain_rand)
+     iteration at 1024 envs (512 a rank; the ring's frames sharded,
+     fetched from their owners as bytes), counted (K7 as phase 14, K1-K6
+     0), with buffer_idx > 0, update_step 4, finite metrics, the split,
+     env steps/s and each rank's peak allocated memory; the fast dry-run
+     tier against 1 rank on the
      card (tests/test_torch_dp_train.py's rules) and the flagship tier
      (`parallel.dryrun`; its library built on the host's CPU beside the
      earlier phases). Ranks sharing one card measure the parallel path's
@@ -274,8 +289,9 @@ over the phase-6 updates, K7 over the phase-8 env path;
 launches_per_train_iter over phase 11's collect and train_iter,
 launches_per_clutter_iter over phase 12's, launches_per_goal_update over
 phase 13's cli.train_goal steps, launches_per_image_iter over phase 14's
-counted iteration, launches_per_dp_iter on each of phase 16's ranks over
-its counted iteration; ms, plain_ms,
+counted iteration, launches_per_dp_iter and launches_per_image_dp_iter
+on each of phase 16's ranks over its counted iteration and its image
+iteration; ms, plain_ms,
 bound_ms: K1-K4 summed over the kernel's levels in one forward at
 B=1024 on the synthetic serving clouds, K5/K6 over their levels in one policy-encoder train forward at
 B=256, K7 one 75-substep launch at B=1024; dp_split_ms: K5/K6 over the
@@ -289,6 +305,7 @@ import argparse
 import contextlib
 import copy
 import dataclasses
+import gc
 import json
 import os
 import statistics
@@ -1035,6 +1052,8 @@ class Smoke:
         self.per_goal_update = {}  # and per GoalFeature update (phase 13)
         self.per_image_iter = {}  # and over one image-mode iteration (phase 14)
         self.per_dp_iter = {}  # and on each of phase 16's ranks over one iteration
+        self.per_image_dp_iter = {}  # and over its image iteration (phase 16)
+        self.dp_image_split_ms = None  # ImageFeature's policy forward split, whole (phase 16)
         self.dp_split_ms = {}  # K5/K6 split at the reduction over 2 ranks (phase 16)
         self.card = card_line()
         self._scale2 = None
@@ -1218,6 +1237,35 @@ class Smoke:
                 f"hits {int(hits.min())}-{int(hits.max())}, {int((hits == 0).sum())} centres "
                 f"without, {int((hits >= nsample).sum())} with a full row; indices equal, two "
                 "launches bit-identical ok")
+
+    def check_valid_masks(self, gen):
+        """FPS and ball query with `valid=` all true at one serving shape
+        (B=8, SA1 and SA2) on the card: the masked call runs the plain
+        version (as the JAX package serves a mask from XLA), launches no
+        kernel, and gives the kernels' indices."""
+        sampling = self.sampling
+        (_, n1, r1, k1), (_, n2, r2, k2) = SA_LEVELS
+        ps = synthetic_point_state(8, gen, self.hand_points, self.device)
+        xyz = ps[:, :3, 6:].transpose(1, 2).contiguous()
+        centres = sampling.gather_points(xyz, sampling.furthest_point_sampling(xyz, n1))
+        sa2 = sampling.gather_points(centres, sampling.furthest_point_sampling(centres, n2))
+        for label, (pts, ctr, npoint, radius, nsample) in (
+                ("SA1", (xyz, centres.contiguous(), n1, r1, k1)),
+                ("SA2", (centres.contiguous(), sa2.contiguous(), n2, r2, k2))):
+            valid = torch.ones(pts.shape[:2], dtype=torch.bool, device=self.device)
+            want_f = sampling.furthest_point_sampling(pts, npoint)
+            want_b = sampling.ball_query(ctr, pts, radius, nsample)
+            before = self.counts()
+            got_f = sampling.furthest_point_sampling(pts, npoint, valid=valid)
+            got_b = sampling.ball_query(ctr, pts, radius, nsample, valid=valid)
+            torch.cuda.synchronize()
+            if self.counts() != before:
+                raise AssertionError(f"valid= {label}: a masked call launched a kernel")
+            if not (torch.equal(got_f, want_f) and torch.equal(got_b, want_b)):
+                raise AssertionError(f"valid= {label}: the masked indices differ from K1/K2's")
+            log(f"[check] valid=        {label} B=8 N={pts.shape[1]}: FPS and ball query with "
+                f"an all-true mask (the plain version on the card, no launch) equal K1's and "
+                f"K2's indices ok")
 
     def check_k4(self, gen):
         """K4 (mlp_maxpool) against its plain version within 1e-4 at B =
@@ -4117,6 +4165,7 @@ class Smoke:
                 "launches_per_goal_update": self.per_goal_update[kernel],
                 "launches_per_image_iter": self.per_image_iter[kernel],
                 "launches_per_dp_iter": self.per_dp_iter[kernel],
+                "launches_per_image_dp_iter": self.per_image_dp_iter[kernel],
                 "max_abs_err": self.errors[kernel],
                 "ms": t["ms"],
                 "plain_ms": t["plain_ms"],
@@ -4417,6 +4466,42 @@ DP_TIER_WORLD = 2             # the dry-run tiers at a 2-rank dry run's sizes
 DP_SEED = 16                  # the sharded updates' state and batch
 DP_FLAGSHIP = "dryrun flagship"  # LibraryBuild: build_proc_library(2, seed0=11)
 DP_RING_FIELDS = ("reward", "returns", "episode_map", "timestep", "expert_flags", "terminal")
+DP_IMAGE_SEED = 17            # the image agent's state, frames and batch
+DP_IMAGE_ENVS = 1024          # the image iteration's envs over both ranks (512 a rank)
+
+
+def synthetic_frames(batch, gen, side, device):
+    """RGBDM frames (B, 5, side, side) from `gen`: RGB in [0, 1), depth in
+    [0.2, 1.5) m, a target mask on about a quarter of the pixels."""
+    f = torch.rand((batch, 5, side, side), generator=gen, device=device)
+    f[:, 3] = 0.2 + 1.3 * f[:, 3]
+    f[:, 4] = (f[:, 4] < 0.25).float()
+    return f
+
+
+def image_feature_pass(feat, img, act, mesh=None):
+    """ImageFeature's train forward, both encoders (the value path with
+    `act`), statistics over every rank's rows with `mesh`: {path: (output,
+    [(mean, var)] * 20, gradients of sum(output^2) in the image rows and
+    in the encoder's parameters)}, as numpy arrays. The backward runs
+    under `f32_matmuls` too, as the updates run theirs: cuDNN's TF32
+    default would round the convolutions' gradients to 10 bits."""
+    from gaddpg_tpu_torch.utils.precision import f32_matmuls
+
+    return f32_matmuls(_image_feature_pass)(feat, img, act, mesh)
+
+
+def _image_feature_pass(feat, img, act, mesh):
+    out = {}
+    for path, kw in (("policy", {}), ("value", {"value": True, "action": act})):
+        x = img.clone().requires_grad_()
+        y, stats = feat(x, train=True, mesh=mesh, **kw)
+        enc = feat.value_encoder if kw else feat.encoder
+        grads = torch.autograd.grad((y * y).sum(), [x, *enc.parameters()])
+        out[path] = (y.detach().cpu().numpy(), [(m.cpu().numpy(), v.cpu().numpy())
+                                                for m, v in stats],
+                     [g.cpu().numpy() for g in grads])
+    return out
 
 
 def _to(tree, device):
@@ -4609,7 +4694,67 @@ def dp_fast_tier(mesh, output_dir, device="cuda"):
     return roll, ring, metrics, tr.update_step, _numpy(state_tensors(tr.agent_state))
 
 
-def dp_rank(mesh, calls, cfg, start, batch, draws, work, flagship_lib):
+def dp_image_feature_rank(mesh, feat, img, act):
+    """ImageFeature's train forward on this rank's rows of the batch
+    (`image_feature_pass`), twice, bit-identical, and the policy encoder's
+    train forward timed (host clock, median of 3) -> (the pass, ms)."""
+    from gaddpg_tpu_torch.parallel.mesh import local_slice
+
+    dev = mesh.device
+    feat = copy.deepcopy(feat).to(dev)
+    rows = local_slice(mesh, img.shape[0])
+    img, act = img[rows].to(dev), act[rows].to(dev)
+    first = image_feature_pass(feat, img, act, mesh)
+    again = image_feature_pass(feat, img, act, mesh)
+    for path, (y, stats, _) in first.items():
+        y2, stats2, _ = again[path]
+        if not np.array_equal(y, y2) or not all(
+                np.array_equal(a, b) for mv, mv2 in zip(stats, stats2) for a, b in zip(mv, mv2)):
+            raise AssertionError(f"dp image {path}: two split forwards differ")
+    with torch.no_grad():
+        ms = host_ms(lambda: feat(img, train=True, mesh=mesh), reps=3)
+    return first, ms
+
+
+def dp_image_loop_rank(mesh):
+    """Phase 16's image iteration on this rank's share:
+    load_config(use_image, domain_rand, DP_IMAGE_ENVS envs) on the mesh,
+    one iteration, counted and timed (`Smoke.timed_iteration`; cold), with
+    this rank's peak allocated memory."""
+    import tempfile
+
+    from gaddpg_tpu_torch.envs.assets import library_from_index
+    from gaddpg_tpu_torch.train import Trainer, load_config
+
+    gc.collect()  # the point-cloud Trainer before it
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = load_config(overrides={"use_image": True, "domain_rand": True,
+                                 "num_envs": DP_IMAGE_ENVS,
+                                 "output_dir": tempfile.mkdtemp(prefix="dp_image_")},
+                      policy="DDPG")
+    t0 = time.perf_counter()
+    tr = Trainer(cfg, lib=library_from_index("ycb", "train"), mesh=mesh)
+    torch.cuda.synchronize()
+    setup_ms = (time.perf_counter() - t0) * 1e3
+    counter = _RankCounts()
+    counter.reset_counts()
+    it = counter.timed_iteration(tr, counts=True)
+    local = tr.buffer.size // mesh.world  # this rank's slots of the ring's frames
+    frames = tr.buffer.image_state[:min(max(tr.buffer.filled - mesh.rank * local, 0), local)]
+    keep = ("stats", "collect_ms", "train_ms", "metrics", "inserted", "spans", "calls",
+            "collect_counts", "train_counts")
+    return {"setup_ms": setup_ms, "horizon": cfg.rollout_horizon,
+            "updates": cfg.updates_per_iter, "update_step": tr.update_step,
+            "frames_ok": bool(frames.dtype == torch.bfloat16
+                              and torch.isfinite(frames.float()).all()),
+            "ring_frames": tuple(tr.buffer.image_state.shape),
+            "buffer_bytes": tr.buffer.nbytes,
+            "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+            **{k: it[k] for k in keep}}
+
+
+def dp_rank(mesh, calls, cfg, start, batch, draws, work, flagship_lib, image):
     """One of the ranks sharing the card: every part of phase 16 that runs
     on ranks, in order."""
     from gaddpg_tpu_torch.parallel.dryrun import run_tier
@@ -4617,8 +4762,13 @@ def dp_rank(mesh, calls, cfg, start, batch, draws, work, flagship_lib):
     t0 = time.perf_counter()
     out = {"kernels": dp_kernels_rank(mesh, calls),
            "updates": dp_updates_rank(mesh, cfg, start, batch, draws),
-           "loop": dp_loop_rank(mesh),
-           "fast": dp_fast_tier(mesh, os.path.join(work, "fast"))}
+           "image_feature": dp_image_feature_rank(mesh, *image["feature"]),
+           "image_updates": dp_updates_rank(mesh, *image["updates"], timed=2),
+           "loop": dp_loop_rank(mesh)}
+    out["image_loop"] = dp_image_loop_rank(mesh)
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["fast"] = dp_fast_tier(mesh, os.path.join(work, "fast"))
     t1 = time.perf_counter()
     out["flagship"] = run_tier(mesh, True, os.path.join(work, "flagship"), flagship_lib)
     out["flagship_s"] = time.perf_counter() - t1
@@ -4636,6 +4786,166 @@ def _load_state(template, tensors, counts):
             t.copy_(torch.from_numpy(a))
     set_state_counts(state, counts)
     return state
+
+
+def dp_image_references(smoke):
+    """Phase 16's image references without a mesh, on the card: the image
+    agent's state (carried Adam moments from one update on other frames),
+    ImageFeature's train forward at TRAIN_BATCH on synthetic 112 x 112
+    frames (`image_feature_pass`) and its policy encoder's time, and the
+    DDPG and BC updates at TRAIN_BATCH. -> (the ranks' image arguments,
+    the whole-batch pass, its ms, {kind: (metrics, state after (CPU), ms)},
+    the config, the start state (CPU))."""
+    from gaddpg_tpu_torch.agents import (
+        AgentConfig, create_agent_state, make_bc_update, make_ddpg_update,
+    )
+
+    dev = smoke.device
+    cfg = AgentConfig(use_image=True, target_update_interval=1, collision_aux_weight=0.1,
+                      collision_demo_discount=0.5)
+    start = create_agent_state(cfg, generator=torch.Generator().manual_seed(DP_IMAGE_SEED))
+    igen = torch.Generator(device=dev).manual_seed(DP_IMAGE_SEED)
+    side = cfg.image_size
+
+    def image_batch():
+        b = smoke.mixed_batch(TRAIN_BATCH, igen)
+        del b["point_state"], b["next_point_state"]
+        b["image_state"] = synthetic_frames(TRAIN_BATCH, igen, side, dev)
+        b["next_image_state"] = synthetic_frames(TRAIN_BATCH, igen, side, dev)
+        return b
+
+    make_ddpg_update(cfg)(start, image_batch())  # carried Adam moments
+    start.update_step = 0
+    batch = image_batch()
+    draws = torch.rand((TRAIN_BATCH, 6), generator=igen, device=dev)
+    alone = {}
+    for kind, make in (("ddpg", make_ddpg_update), ("bc", make_bc_update)):
+        state, upd = start.to(dev), make(cfg)
+        step = ((lambda: upd(state, batch, noise_draws=draws)) if kind == "ddpg"
+                else (lambda: upd(state, batch)))
+        metrics = {k: float(v) for k, v in step().items()}
+        alone[kind] = (metrics, state.to("cpu"), host_ms(step, reps=2))
+        del state
+    img = synthetic_frames(TRAIN_BATCH, igen, side, dev)
+    act = torch.rand((TRAIN_BATCH, 6), generator=igen, device=dev) * 0.1 - 0.05
+    whole = image_feature_pass(start.feat, img, act)
+    with torch.no_grad():
+        whole_ms = host_ms(lambda: start.feat(img, train=True), reps=3)
+    start_cpu = start.to("cpu")
+    feat_cpu = copy.deepcopy(start_cpu.feat)
+    image = {"feature": (feat_cpu, img.cpu(), act.cpu()),
+             "updates": (cfg, start_cpu, _to(batch, "cpu"), draws.cpu())}
+    del start, batch, img, act
+    torch.cuda.empty_cache()
+    return image, whole, whole_ms, alone, cfg, start_cpu
+
+
+def dp_image_checks(smoke, ranks, whole, whole_ms, alone, cfg, start_cpu):
+    """Phase 16's image parts on the ranks against the references: the
+    ImageFeature split by IMAGE_FEATURE_TOL["train"] (outputs and each
+    BatchNorm's statistics, of the whole batch's largest) and phase 2's
+    gradient rule (each element within 1e-3 of itself plus its leaf's
+    largest: the image rows each rank's own, the parameter gradients
+    summed over the ranks);
+    the sharded image updates by phase 6's rule, every rank's state
+    bit-identical; the image iteration counted (K7 as phase 14 counts it,
+    K1-K6 0), buffer_idx > 0, update_step 4, finite metrics."""
+    card = smoke.card
+    errs = {}
+    for path, (y, stats, grads) in whole.items():
+        parts = [rank["image_feature"][0][path] for rank in ranks]
+        got = np.concatenate([p[0] for p in parts])
+        err = float(np.abs(got - y).max() / np.abs(y).max())
+        serr = 0.0
+        for p in parts:
+            for (m, v), (wm, wv) in zip(p[1], stats, strict=True):
+                for a, w in ((m, wm), (v, wv)):
+                    serr = max(serr, float(np.abs(a - w).max() / max(np.abs(w).max(), 1e-30)))
+        # phase 2's rule (`check_train_grads`): |g - w| <= 1e-3 (|w| + max |w|)
+        # elementwise; gerr is the largest share of that bound used
+        gerr, worst = 0.0, 0
+        for i, w in enumerate(grads):
+            g = (np.concatenate([p[2][i] for p in parts]) if i == 0
+                 else np.sum([p[2][i] for p in parts], axis=0))
+            used = float((np.abs(g - w) / (1e-3 * (np.abs(w) + np.abs(w).max()) + 1e-30)).max())
+            if used > gerr:
+                gerr, worst = used, i
+        errs[path] = (err, serr, gerr, worst)
+        if max(err, serr) > IMAGE_FEATURE_TOL["train"] or gerr > 1.0:
+            raise AssertionError(f"dp image {path}: split against the whole batch off by "
+                                 f"{err:.3e} (outputs), {serr:.3e} (statistics) of the largest; "
+                                 f"gradients at {gerr:.3f} of phase 2's bound (leaf {worst})")
+    split_ms = ranks[0]["image_feature"][1]
+    smoke.dp_image_split_ms = (split_ms, whole_ms)
+    log(f"[dp] ImageFeature train forward at B={TRAIN_BATCH}, 112 x 112, split over {DP_RANKS} "
+        f"ranks (20 BatchNorms an encoder, each reduced across the ranks): against the whole "
+        f"batch " + ", ".join(f"{p} outputs {e:.2e} and statistics {s_:.2e} of the largest "
+                              f"(bound {IMAGE_FEATURE_TOL['train']}), gradients at {g:.3f} of "
+                              f"phase 2's bound (leaf {w_})"
+                              for p, (e, s_, g, w_) in errs.items())
+        + "; two split forwards "
+        f"bit-identical; the policy encoder's train forward {split_ms:.3f} ms a rank split "
+        f"(rank 0, host clock, each reduction staged through the host) against "
+        f"{whole_ms:.3f} ms on the whole batch ok ({card})")
+    for kind in ("ddpg", "bc"):
+        want, state_ref, ms_alone = alone[kind]
+        outs = [r["image_updates"] for r in ranks]
+        metrics, tensors, counts, digest, ms, clocked_ms, coll_ms = outs[0][kind]
+        if any(o[kind][2] != counts or o[kind][3] != digest for o in outs[1:]):
+            raise AssertionError(f"dp image {kind}: the ranks' states differ")
+        for k, w in want.items():
+            torch.testing.assert_close(torch.tensor(metrics[k]), torch.tensor(w),
+                                       rtol=1e-3, atol=1e-3, msg=f"dp image {kind} {k}")
+        got = _load_state(start_cpu, tensors, counts)
+        serr, offs = smoke.compare_updated(cfg, start_cpu, got, state_ref, quiet=True)
+        log(f"[dp] image {kind} update B={TRAIN_BATCH}, 112 x 112, on {DP_RANKS} ranks of one "
+            f"card: metrics within 1e-3 of the update without a mesh, running statistics "
+            f"max_abs_err={serr:.3e}, moves off " + ", ".join(
+                f"{g} {o}/{n}" for g, (o, n, _) in offs.items())
+            + f"; every rank's state bit-identical; {ms:.3f} ms an update against "
+            f"{ms_alone:.3f} ms without a mesh (host clock, median of 2); with the "
+            f"collectives clocked {clocked_ms:.3f} ms, {coll_ms:.3f} of them in the "
+            f"collectives ({coll_ms / clocked_ms:.1%}) ok ({card})")
+
+    loops = [r["image_loop"] for r in ranks]
+    horizon, updates = loops[0]["horizon"], loops[0]["updates"]
+    want_collect = {k: 0 for k in smoke.wrappers}
+    want_collect["contact_scan"] = RESET_K7 + STEP_K7 * horizon + RETRACT_K7
+    want_train = {k: 0 for k in smoke.wrappers}
+    for r, lp in enumerate(loops):
+        if lp["collect_counts"] != want_collect or lp["train_counts"] != want_train:
+            raise AssertionError(f"dp image loop rank {r}: launches {lp['collect_counts']} in "
+                                 f"collect, {lp['train_counts']} in train_iter; expected "
+                                 f"{want_collect}, {want_train}")
+        st = lp["stats"]
+        bad = [k for k, v in {**st, **lp["metrics"]}.items() if not np.isfinite(v)]
+        if (st["buffer_idx"] <= 0 or lp["update_step"] != updates or bad or not lp["metrics"]
+                or not lp["frames_ok"]):
+            raise AssertionError(f"dp image loop rank {r}: buffer_idx {st['buffer_idx']}, "
+                                 f"update_step {lp['update_step']}, non-finite {bad}, frames "
+                                 f"{lp['frames_ok']}")
+    smoke.per_image_dp_iter = {k: loops[0]["collect_counts"][k] + loops[0]["train_counts"][k]
+                               for k in smoke.wrappers}
+    steps = DP_IMAGE_ENVS * horizon
+    collect_ms = max(lp["collect_ms"] for lp in loops)
+    it_ms = max(lp["collect_ms"] + lp["train_ms"] for lp in loops)
+    log(f"[dp] image iteration (use_image, domain_rand) at {DP_IMAGE_ENVS} envs on {DP_RANKS} "
+        f"ranks of one card ({DP_IMAGE_ENVS // DP_RANKS} envs a rank, batch {TRAIN_BATCH}, "
+        f"{updates} updates, the ring's frames sharded, {loops[0]['ring_frames']} a rank, "
+        f"{loops[0]['buffer_bytes']} bytes of ring a rank): set up "
+        f"{max(lp['setup_ms'] for lp in loops):.1f} ms; each rank's launches per iteration "
+        f"{smoke.per_image_dp_iter} (K7 as phase 14's, K1-K6 0) ({card})")
+    for r, lp in enumerate(loops):
+        log(f"[dp] image rank {r}, its first (cold) iteration: collect "
+            f"{collect_split(lp['spans'], lp['collect_ms'], horizon)}; train_iter "
+            f"{lp['train_ms']:.3f} ms; peak allocated {lp['peak_gib']:.3f} GiB "
+            f"(torch.cuda.max_memory_allocated of the rank) ({card})")
+    st = loops[0]["stats"]
+    log(f"[dp] image iteration {it_ms:.3f} ms (the slower rank; cold), {steps} env steps, "
+        f"{steps / collect_ms * 1e3:.1f} env steps/s over both ranks; buffer_idx "
+        f"{st['buffer_idx']}, update_step {loops[0]['update_step']}, valid scenes "
+        f"{st['valid_scene_frac']:.4f}, metrics " + ", ".join(
+            f"{k} {v:.5g}" for k, v in loops[0]["metrics"].items()) + f" ok ({card})")
 
 
 def dp_phase(smoke, gen, flagship_build, mark=None):
@@ -4685,6 +4995,9 @@ def dp_phase(smoke, gen, flagship_build, mark=None):
     log(f"[dp] references on one rank done; the flagship tier's library built in "
         f"{info['seconds']:.1f} s on the host's CPU ({info['where']})")
     start_cpu = start.to("cpu")
+    image, whole_image, whole_image_ms, alone_image, image_cfg, image_start = \
+        dp_image_references(smoke)
+    log("[dp] image references on one rank done")
     # one rank over NCCL, this process alone in its group
     mesh = init_mesh(1, 0, dev, "file://" + os.path.join(work, "nccl-rendezvous"),
                      timeout_s=DP_NCCL_INIT_S)
@@ -4693,7 +5006,7 @@ def dp_phase(smoke, gen, flagship_build, mark=None):
     finally:
         shutdown()
     args = ([(label, kernel, _to(args, "cpu")) for label, kernel, args in calls],
-            cfg, start_cpu, _to(batch, "cpu"), draws.cpu(), work, flagship_build.path)
+            cfg, start_cpu, _to(batch, "cpu"), draws.cpu(), work, flagship_build.path, image)
     t0 = time.perf_counter()
     ranks = launch(dp_rank, DP_RANKS, args=args, devices=["cuda:0"] * DP_RANKS,
                    rendezvous_dir=work, timeout_s=DP_TIMEOUT, threads=4)
@@ -4793,6 +5106,10 @@ def dp_phase(smoke, gen, flagship_build, mark=None):
         f"parallel path's overhead, not a speedup ({card})")
     if mark:
         mark("dp loop")
+    dp_image_checks(smoke, ranks, whole_image, whole_image_ms, alone_image, image_cfg,
+                    image_start)
+    if mark:
+        mark("dp image")
 
     # the fast tier against one rank (tests/test_torch_dp_train.py's rules)
     n = one[0]["buffer_idx"]
@@ -4963,6 +5280,7 @@ def main(argv=None) -> int:
             smoke.check_kernels(gen)
             smoke.check_fps(gen)
             smoke.check_ball_query(torch.Generator(device="cuda").manual_seed(K2_SEED))
+            smoke.check_valid_masks(gen)
             smoke.check_k4(gen)
         smoke.check_train_kernels(gen)  # gradients: outside no_grad
         smoke.check_compaction(gen)

@@ -53,3 +53,8 @@ def make_bc_update(cfg: AgentConfig = AgentConfig(), device="cuda", mesh=None):
     update.mesh = mesh
     return update
 
+
+def bc_update(cfg: AgentConfig = AgentConfig(), device="cuda", mesh=None):
+    """The built BC update (`make_bc_update`), as the JAX package's
+    `bc_update` returns its jitted update."""
+    return make_bc_update(cfg, device, mesh=mesh)

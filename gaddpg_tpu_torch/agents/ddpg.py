@@ -318,6 +318,12 @@ def make_ddpg_update(cfg: AgentConfig = AgentConfig(), device="cuda", mesh=None)
     return update
 
 
+def ddpg_update(cfg: AgentConfig = AgentConfig(), device="cuda", mesh=None):
+    """The built DDPG update (`make_ddpg_update`), as the JAX package's
+    `ddpg_update` returns its jitted update."""
+    return make_ddpg_update(cfg, device, mesh=mesh)
+
+
 # the DDPG metrics that are sums of the ranks' shares under a mesh
 DDPG_SUMMED = ("critic_loss", "critic_grasp_aux_loss", "bc_loss", "policy_grasp_aux_loss",
                "actor_critic_loss", "q_mean", "reward_mask_num", "expert_mask_num")

@@ -13,14 +13,31 @@ eps=adam_eps, weight_decay=weight_decay)`, optionally chained after
 
 Weight decay is decoupled and applies to every parameter, BatchNorm
 scale and bias included. The learning rate is piecewise constant on the
-optimizer's own count, each milestone's factor applying once count >=
-milestone. The clip has no epsilon (unlike
+optimizer's own count (`multistep_lr`), each milestone's factor applying
+once count >= milestone. The clip has no epsilon (unlike
 `torch.nn.utils.clip_grad_norm_`).
 """
 
 import torch
 
 B1, B2 = 0.9, 0.999  # optax's Adam defaults, which the JAX package keeps
+
+
+def multistep_lr(base_lr: float, milestones, gamma: float):
+    """torch's MultiStepLR as a function of the step count, with the
+    values of optax's `piecewise_constant_schedule(base_lr, {m: gamma})`
+    (gaddpg_tpu/agents/state.py:45): base_lr times gamma for each
+    distinct milestone m with count >= m."""
+    bounds = sorted({int(m) for m in milestones})
+
+    def schedule(count: int) -> float:
+        lr = base_lr
+        for m in bounds:
+            if count >= m:
+                lr *= gamma
+        return lr
+
+    return schedule
 
 
 class AdamW:
@@ -40,11 +57,7 @@ class AdamW:
         self.count = 0
 
     def learning_rate(self, count: int) -> float:
-        lr = self.lr
-        for m in sorted(self.milestones):
-            if count >= m:
-                lr *= self.gamma
-        return lr
+        return multistep_lr(self.lr, self.milestones, self.gamma)(count)
 
     @torch.no_grad()
     def step(self, grads, apply: bool = True):

@@ -17,7 +17,9 @@ optimizer states. The port's holds modules instead:
 - `goal`: the `GoalFeature` grasp-pose encoder (parameters and BatchNorm
   running statistics) and `goal_opt`, its AdamW at the feature learning
   rate, which the DDPG and BC updates leave alone
-  (`data.grasp_dataset.make_goal_feature_update` steps them).
+  (`data.grasp_dataset.make_goal_feature_update` steps them);
+- `cfg`: the `AgentConfig` the state was built for, which a JAX
+  checkpoint read into its shape needs (`train.checkpoints.load_agent`).
 
 `create_agent_state` initialises them with the JAX package's
 initialisers; `from_flax` loads a JAX state's trees, optimizer states
@@ -33,7 +35,7 @@ import torch
 from torch import nn
 
 from gaddpg_tpu_torch.agents.config import AgentConfig
-from gaddpg_tpu_torch.agents.optim import AdamW
+from gaddpg_tpu_torch.agents.optim import AdamW, multistep_lr  # noqa: F401 (exported)
 from gaddpg_tpu_torch.models import (
     GaussianPolicy, GoalFeature, ImageFeature, PointNetFeature, QNetwork, ResNet18Feature,
 )
@@ -54,6 +56,7 @@ class AgentState:
     update_step: int = 0
     goal: GoalFeature = None
     goal_opt: AdamW = None
+    cfg: AgentConfig = None
 
     @property
     def device(self) -> torch.device:
@@ -66,7 +69,8 @@ class AgentState:
                            for m in (self.feat, self.policy, self.critic,
                                      self.policy_target, self.critic_target)),
                          update_step=self.update_step,
-                         goal=None if self.goal is None else copy.deepcopy(self.goal).to(device))
+                         goal=None if self.goal is None else copy.deepcopy(self.goal).to(device),
+                         cfg=self.cfg)
         if self.opt is not None:
             out.opt = {name: _moved_optimizer(self.opt[name], params, device)
                        for name, params in _optimizer_params(out).items()}
@@ -347,7 +351,7 @@ def _assemble(cfg, feat, policy, critic, goal, device, update_step=0,
         feat.eval(), policy.eval(), critic.eval(),
         (policy_target if policy_target is not None else copy.deepcopy(policy)).eval(),
         (critic_target if critic_target is not None else copy.deepcopy(critic)).eval(),
-        update_step=update_step, goal=goal.eval(),
+        update_step=update_step, goal=goal.eval(), cfg=cfg,
     )
     for m in (state.feat, state.policy, state.critic, state.policy_target, state.critic_target,
               state.goal):

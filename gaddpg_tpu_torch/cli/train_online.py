@@ -27,7 +27,7 @@ def create_parser():
     p.add_argument("--num_envs", type=int, default=None)
     p.add_argument("--max_epoch", type=int, default=None)
     p.add_argument("--pretrained", default=None,
-                   help="directory with an agent_latest.pt to resume")
+                   help="directory with an agent_latest.pt (or a JAX run's .msgpack) to resume")
     p.add_argument("--save_buffer", action="store_true")
     p.add_argument("--max_iters", type=int, default=None)
     p.add_argument("--index_file", default=None, help="object library: ycb | extra_shape")

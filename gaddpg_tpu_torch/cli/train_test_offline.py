@@ -14,8 +14,10 @@ spread over runs. Runs on the card unless --device cpu:
     python -m gaddpg_tpu_torch.cli.train_test_offline --test \
         --pretrained output/off0 --num_runs 3 --episodes 200
 
---pretrained reads the port's <dir>/agent_latest.pt; --profile writes a
-torch.profiler trace of the evaluation to <log_dir>/profile/trace.json.
+--pretrained reads <dir>/agent_latest.pt, or the JAX package's
+<dir>/agent_latest.msgpack (`train.checkpoints.load_agent`); --profile
+writes a torch.profiler trace of the evaluation to
+<log_dir>/profile/trace.json.
 """
 
 import argparse

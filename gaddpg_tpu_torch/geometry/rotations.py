@@ -136,6 +136,14 @@ def euler_to_quat(e):
     return mat_to_quat(euler_to_mat(e))
 
 
+def axis_angle_to_quat(axis, angle):
+    """Axis (..., 3, not necessarily unit) + angle (...,) -> quaternion
+    (..., 4) wxyz."""
+    axis = axis / torch.clamp(torch.linalg.vector_norm(axis, dim=-1, keepdim=True), min=_EPS)
+    half = angle[..., None] * 0.5
+    return torch.cat([torch.cos(half), axis * torch.sin(half)], dim=-1)
+
+
 def quat_integrate(q, omega, dt):
     """Integrate unit quaternion(s) q (..., 4) by world-frame angular
     velocity omega (..., 3) over dt: normalize(q + 0.5 dt omega_q * q).

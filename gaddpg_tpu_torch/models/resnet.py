@@ -14,10 +14,21 @@ a file on disk.
 
 BatchNorm follows Flax's arithmetic, as models/pointnet.py does: the
 train forward normalises by each call's batch statistics (fast variance,
-clamped at 0) and returns them, detached, in the order of `batch_norms`,
+clamped at 0, the per-channel sums over (N, H, W) accumulated in float64
+from the float32 activations and their float32 squares) and returns them, detached, in the order of `batch_norms`,
 without touching the running statistics; the caller folds the ones it
 keeps in with `update_running_stats` (momentum 0.9 on the old value, the
 biased variance). The modules' own BatchNorm layers stay in eval mode.
+
+Under a data-parallel mesh (`mesh=`, `parallel.mesh`) each rank holds
+its rows of the batch and every one of the 20 BatchNorms of an encoder
+takes its statistics over the global batch, as the JAX package's sharded
+program does: each rank's float64 sums of x and x^2 and its row count
+are added across the ranks through the differentiable all-reduce
+(`ops.sa_train.batch_moments`), in layer order, so the backward reduces
+the gradients of the same sums in the reverse order; the split differs
+from the whole batch only in the order of float64 additions. Every rank
+reaches every reduction: none depends on its own rows.
 
 The convolutions run with TF32 off (`f32_matmuls`), so a card computes
 them in float32 as the CPU does; `AgentConfig.compute_dtype` does not
@@ -30,6 +41,7 @@ from torch import nn
 from torch.nn import functional as F
 
 from gaddpg_tpu_torch.models.pointnet import BN_EPS, update_running_stats
+from gaddpg_tpu_torch.ops.sa_train import batch_moments
 from gaddpg_tpu_torch.utils.precision import f32_matmuls
 
 # RGB statistics of ImageNet, identity for depth and mask
@@ -44,16 +56,17 @@ def _batch_norm(c: int) -> nn.BatchNorm2d:
     return nn.BatchNorm2d(c, eps=BN_EPS, momentum=0.1)
 
 
-def batch_norm_2d(bn: nn.BatchNorm2d, x, stats=None):
+def batch_norm_2d(bn: nn.BatchNorm2d, x, stats=None, mesh=None):
     """BatchNorm over (N, H, W) of x (N, C, H, W) with Flax's arithmetic:
     (x - mean) * (rsqrt(var + eps) * scale) + bias. With `stats` a list,
-    the batch's statistics (fast variance, clamped at 0) normalise and
-    are appended to it, detached; with None the running ones do."""
+    the batch's statistics (fast variance, clamped at 0, the sums in
+    float64; over every rank's rows with a data-parallel `mesh`) normalise
+    and are appended to it, detached; with None the running ones do."""
     if stats is None:
         m, v = bn.running_mean, bn.running_var
     else:
-        m = x.mean(dim=(0, 2, 3))
-        v = torch.clamp((x * x).mean(dim=(0, 2, 3)) - m * m, min=0.0)
+        m, v = batch_moments(x, (0, 2, 3), mesh, sum_dtype=torch.float64)
+        v = torch.clamp(v, min=0.0)
         stats.append((m.detach(), v.detach()))
     mul = torch.rsqrt(v + bn.eps) * bn.weight
     return (x - m[:, None, None]) * mul[:, None, None] + bn.bias[:, None, None]
@@ -82,11 +95,11 @@ class BasicBlock(nn.Module):
             out.append((self.downsample[0], self.downsample[1]))
         return out
 
-    def forward(self, x, stats=None):
-        y = torch.relu(batch_norm_2d(self.bn1, self.conv1(x), stats))
-        y = batch_norm_2d(self.bn2, self.conv2(y), stats)
+    def forward(self, x, stats=None, mesh=None):
+        y = torch.relu(batch_norm_2d(self.bn1, self.conv1(x), stats, mesh))
+        y = batch_norm_2d(self.bn2, self.conv2(y), stats, mesh)
         if self.downsample is not None:
-            x = batch_norm_2d(self.downsample[1], self.downsample[0](x), stats)
+            x = batch_norm_2d(self.downsample[1], self.downsample[0](x), stats, mesh)
         return torch.relu(y + x)
 
 
@@ -122,16 +135,17 @@ class ResNet18Feature(nn.Module):
         update_running_stats(self.batch_norms(), stats)
 
     @f32_matmuls
-    def forward(self, img, train: bool = False):
+    def forward(self, img, train: bool = False, mesh=None):
         """-> (B, 512); with train=True -> ((B, 512), [(mean, var)] of
-        every BatchNorm in the order of `batch_norms`, detached)."""
+        every BatchNorm in the order of `batch_norms`, detached; over
+        every rank's rows with a data-parallel `mesh`)."""
         stats = [] if train else None
         c = img.shape[1]
         x = (img - self.mean[:c, None, None]) / self.std[:c, None, None]
-        x = torch.relu(batch_norm_2d(self.bn1, self.conv1(x), stats))
+        x = torch.relu(batch_norm_2d(self.bn1, self.conv1(x), stats, mesh))
         x = F.max_pool2d(x, 3, 2, 1)
         for blk in self.blocks():
-            x = blk(x, stats)
+            x = blk(x, stats, mesh)
         x = x.mean(dim=(2, 3))
         return (x, stats) if train else x
 
@@ -151,15 +165,11 @@ class ImageFeature(nn.Module):
     def forward(self, image, action=None, value: bool = False, train: bool = False,
                 mesh=None):
         """image (B, 5, H, W); action (B, 6) for the value path. Returns
-        the encoder's output (with train=True, also its batch statistics).
-        A data-parallel `mesh` raises: the ResNet-18's BatchNorms do not
-        reduce their statistics across ranks yet (ROADMAP.md, Queue 1)."""
-        if mesh is not None:
-            raise NotImplementedError("image mode under a data-parallel mesh is not ported yet "
-                                      "(ROADMAP.md, Queue 1: the ResNet-18's BatchNorms)")
+        the encoder's output (with train=True, also its batch statistics,
+        over every rank's rows with a data-parallel `mesh`)."""
         if not value:
-            return self.encoder(image, train)
-        out = self.value_encoder(image, train)
+            return self.encoder(image, train, mesh)
+        out = self.value_encoder(image, train, mesh)
         z, stats = out if train else (out, None)
         if action is not None:
             z = torch.cat([z, action], dim=-1)

@@ -68,23 +68,31 @@ def bn_affine(mean, var, scale, bias, eps: float = BN_EPS):
     return a, bias - mean * a
 
 
-def batch_moments(z, dims, mesh=None):
-    """(mean, E[z^2] - mean^2) of z over `dims`; with a data-parallel
-    `mesh`, over every rank's rows: the sums and the row count are added
-    across the ranks (differentiably) before the division."""
+def batch_moments(z, dims, mesh=None, sum_dtype=None):
+    """(mean, E[z^2] - mean^2) of z over `dims`, which leave one axis (the
+    channels: the last of a (rows, C) tensor, axis 1 of an NCHW image),
+    accumulated in `sum_dtype` (default z's) and returned in z's dtype;
+    with a data-parallel `mesh`, over every rank's rows: the sums and the
+    row count are added across the ranks (differentiably) before the
+    division."""
     if mesh is None:
-        m = z.mean(dim=dims)
-        return m, (z * z).mean(dim=dims) - m * m
+        if sum_dtype is None:
+            m = z.mean(dim=dims)
+            return m, (z * z).mean(dim=dims) - m * m
+        m = z.mean(dim=dims, dtype=sum_dtype)
+        v = (z * z).mean(dim=dims, dtype=sum_dtype) - m * m
+        return m.to(z.dtype), v.to(z.dtype)
     count = 1
     for d in dims:
         count *= z.shape[d]
-    local = torch.cat([z.sum(dim=dims), (z * z).sum(dim=dims),
-                       z.new_full((1,), float(count))])
+    s1 = z.sum(dim=dims, dtype=sum_dtype)
+    c = s1.shape[0]
+    local = torch.cat([s1, (z * z).sum(dim=dims, dtype=sum_dtype),
+                       s1.new_full((1,), float(count))])
     total = all_reduce_sum(mesh, local)
-    c = z.shape[-1]
     n = total[2 * c]
     m = total[:c] / n
-    return m, total[c:2 * c] / n - m * m
+    return m.to(z.dtype), (total[c:2 * c] / n - m * m).to(z.dtype)
 
 
 def _train_mlp(h, dense, dims, mesh=None):

@@ -8,6 +8,10 @@ are vmapped; here the batch dimension is written out: xyz is (B, N, 3).
 tensor runs `fps_reference` / `ball_query_reference`, a CUDA tensor
 launches the CUDA kernel (`csrc/fps.cu`, `csrc/ball_query.cu`) or raises.
 Each wrapper counts its kernel launches in its `launches` attribute.
+A `valid=` mask selects the plain version on either device, as the JAX
+package serves masked calls from its XLA path only: the kernels take no
+mask, and the choice follows the argument, never a failure. The model's
+calls pass no mask.
 
 Squared distances are summed as dx*dx + dy*dy + dz*dz, each operation
 rounded on its own, in the Pallas kernels' order and never through the
@@ -44,34 +48,49 @@ def _check_points(name: str, t: torch.Tensor):
         )
 
 
-def fps_reference(xyz: torch.Tensor, npoint: int) -> torch.Tensor:
+def _check_valid(valid, b: int, n: int, device):
+    if valid.shape != (b, n) or valid.dtype != torch.bool or valid.device != device:
+        raise ValueError(f"valid must be bool of shape ({b}, {n}) on {device}; got "
+                         f"{valid.dtype} {tuple(valid.shape)} on {valid.device}")
+
+
+def fps_reference(xyz: torch.Tensor, npoint: int, valid=None) -> torch.Tensor:
     """Plain PyTorch FPS: (B, N, 3) -> (B, npoint) int32 indices.
 
     Starts at index 0 with a 1e10 min-distance register; argmax ties go
-    to the lowest index (torch.argmax returns the first maximum)."""
+    to the lowest index (torch.argmax returns the first maximum). `valid`
+    (B, N) bool keeps padding points out of the selection: the argmax
+    reads the register plus -1e10 where a point is invalid, as the JAX
+    package's masked FPS does."""
     b, n, _ = xyz.shape
     dist = torch.full((b, n), 1e10, dtype=torch.float32, device=xyz.device)
+    penalty = None if valid is None else torch.where(valid, 0.0, -1e10).to(torch.float32)
     idx = torch.zeros((b, npoint), dtype=torch.int32, device=xyz.device)
     rows = torch.arange(b, device=xyz.device)
     last = torch.zeros(b, dtype=torch.long, device=xyz.device)
     for i in range(1, npoint):
         d = _sq_dist(xyz, xyz[rows, last][:, None, :])
         dist = torch.minimum(dist, d)
-        last = torch.argmax(dist, dim=-1)
+        last = torch.argmax(dist if penalty is None else dist + penalty, dim=-1)
         idx[:, i] = last.to(torch.int32)
     return idx
 
 
-def furthest_point_sampling(xyz: torch.Tensor, npoint: int) -> torch.Tensor:
+def furthest_point_sampling(xyz: torch.Tensor, npoint: int, valid=None) -> torch.Tensor:
     """FPS indices (B, npoint) int32 for xyz (B, N, 3) float32.
 
     CPU tensor: `fps_reference`. CUDA tensor: the K1 kernel, one warp per
     cloud holding the cloud in shared memory at 16 bytes a point, so N is
-    bounded by one block's shared memory (14,528 points)."""
+    bounded by one block's shared memory (14,528 points). With `valid`
+    (B, N) bool, `fps_reference` on the tensor's device: the kernel takes
+    no mask (gaddpg_tpu/ops/sampling.py:29 serves a mask from XLA)."""
     _check_points("xyz", xyz)
     b, n, _ = xyz.shape
     if n < 1 or npoint < 1:
         raise ValueError(f"need N >= 1 and npoint >= 1; got N={n}, npoint={npoint}")
+    if valid is not None:
+        _check_valid(valid, b, n, xyz.device)
+        return fps_reference(xyz, npoint, valid)
     dev = build.kernel_device("furthest_point_sampling", xyz)
     if dev.type == "cpu":
         return fps_reference(xyz, npoint)
@@ -87,16 +106,21 @@ furthest_point_sampling.launches = 0
 
 
 def ball_query_reference(centers: torch.Tensor, xyz: torch.Tensor, radius: float,
-                         nsample: int) -> torch.Tensor:
+                         nsample: int, valid=None) -> torch.Tensor:
     """Plain PyTorch ball query: (B, S, 3) centres, (B, N, 3) points ->
     (B, S, nsample) int32.
 
     The first `nsample` points with d2 <= r^2 in index order; free slots
     (also when nsample > N) repeat the first hit; a centre with no hit
-    gets its nearest point (lowest index on ties) in every slot."""
+    gets its nearest point (lowest index on ties) in every slot. `valid`
+    (B, N) bool makes invalid points no hit; the nearest point of a
+    centre without hits is taken over every point, as in the JAX
+    package."""
     n = xyz.shape[-2]
     d2 = _sq_dist(centers[:, :, None, :], xyz[:, None, :, :])  # (B, S, N)
     in_ball = d2 <= _radius_sq(radius)
+    if valid is not None:
+        in_ball = in_ball & valid[:, None, :]
     order = torch.arange(n, device=xyz.device)
     # hits keep their index, misses sort after every hit
     key = torch.where(in_ball, order, n + order)
@@ -160,13 +184,15 @@ def ball_query_layout(b: int, s: int, n: int, nsample: int, sms: int):
 
 
 def ball_query(centers: torch.Tensor, xyz: torch.Tensor, radius: float,
-               nsample: int) -> torch.Tensor:
+               nsample: int, valid=None) -> torch.Tensor:
     """(B, S, nsample) int32 ball-query indices of xyz (B, N, 3) around
     centers (B, S, 3), both float32.
 
     CPU tensors: `ball_query_reference`. CUDA tensors: the K2 kernel,
     laid out by `ball_query_layout`; a cloud too large for one block's
-    shared memory raises ValueError."""
+    shared memory raises ValueError. With `valid` (B, N) bool,
+    `ball_query_reference` on the tensors' device: the kernel takes no
+    mask (gaddpg_tpu/ops/sampling.py:60 serves a mask from XLA)."""
     _check_points("centers", centers)
     _check_points("xyz", xyz)
     b, s, _ = centers.shape
@@ -176,6 +202,11 @@ def ball_query(centers: torch.Tensor, xyz: torch.Tensor, radius: float,
             f"ball_query: centers {tuple(centers.shape)}, xyz {tuple(xyz.shape)}, "
             f"nsample {nsample}"
         )
+    if valid is not None:
+        if centers.device != xyz.device:
+            raise ValueError(f"centers on {centers.device}, xyz on {xyz.device}")
+        _check_valid(valid, b, n, xyz.device)
+        return ball_query_reference(centers, xyz, radius, nsample, valid)
     dev = build.kernel_device("ball_query", centers, xyz)
     if dev.type == "cpu":
         return ball_query_reference(centers, xyz, radius, nsample)
@@ -207,3 +238,43 @@ def group_points(xyz, feats, centers_idx, group_idx):
     new_xyz = gather_points(xyz, centers_idx)
     g_xyz = gather_points(xyz, group_idx) - new_xyz[:, :, None, :]
     return new_xyz, torch.cat([g_xyz, gather_points(feats, group_idx)], dim=-1)
+
+
+def regularize_point_count(pc: torch.Tensor, npoints: int, valid=None, generator=None,
+                           draws=None):
+    """Random up/down-sampling of clouds pc (B, N, C) to exactly `npoints`
+    rows each -> (pc (B, npoints, C), idx (B, npoints) int64), as the
+    JAX package's `regularize_point_count` (the reference's random-choice
+    path, reference: core/utils.py:784-812), one cloud a row of B.
+
+    A Gumbel top-k samples min(npoints, N) rows without replacement among
+    the valid ones (`valid` (B, N) bool, default all); npoints > N appends
+    uniform picks; every pick that lands on an invalid row (fewer valid
+    rows than picks) is replaced by a uniform pick, with replacement,
+    among the valid rows. The draws come from `draws`, {"gumbel": (B, N)
+    float, "extra": (B, max(npoints - N, 0)) and "repl": (B, npoints)
+    integers in [0, N)} (the JAX package's, for parity), else from
+    `generator` on pc's device."""
+    b, n, _ = pc.shape
+    dev = pc.device
+    if valid is None:
+        valid = torch.ones((b, n), dtype=torch.bool, device=dev)
+    _check_valid(valid, b, n, dev)
+    if draws is None:
+        u = torch.rand((b, n), generator=generator, device=dev)
+        tiny = torch.finfo(torch.float32).tiny
+        draws = {"gumbel": -torch.log(-torch.log(torch.clamp(u, min=tiny))),
+                 "extra": torch.randint(0, n, (b, max(npoints - n, 0)), generator=generator,
+                                        device=dev),
+                 "repl": torch.randint(0, n, (b, npoints), generator=generator, device=dev)}
+    g = draws["gumbel"].to(dev, torch.float32) + torch.where(valid, 0.0, -1e9)
+    idx = torch.topk(g, min(npoints, n), dim=-1, largest=True, sorted=True).indices
+    if npoints > n:
+        idx = torch.cat([idx, draws["extra"].to(dev, torch.int64)], dim=-1)
+    picked_valid = torch.gather(valid, 1, idx)
+    count = torch.clamp(valid.sum(dim=-1, keepdim=True), min=1)
+    # replacement picks: uniform over the valid rows, valid rows first
+    order = torch.argsort((~valid).to(torch.int8), dim=-1, stable=True)
+    repl = torch.gather(order, 1, draws["repl"].to(dev, torch.int64) % count)
+    idx = torch.where(picked_valid, idx, repl)
+    return gather_points(pc, idx), idx

@@ -179,15 +179,20 @@ def draw_rows(mesh: Optional[Mesh], draw, shape):
 
 def _out(mesh: Mesh, x: torch.Tensor) -> torch.Tensor:
     """x as the backend takes it: on the host for staged CUDA tensors;
-    booleans as bytes (gloo has no bool)."""
+    booleans as bytes (gloo has no bool); bfloat16 (the ring's frames) as
+    its bytes, the last axis twice as long, so that a move is exact
+    whatever the backend does with bfloat16 (gloo refuses int16)."""
     if x.dtype == torch.bool:
         x = x.to(torch.uint8)
     if mesh.staged and x.is_cuda:
         x = x.cpu()
-    return x.contiguous()
+    x = x.contiguous()
+    return x.view(torch.uint8) if x.dtype == torch.bfloat16 else x
 
 
 def _back(x: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    if like.dtype == torch.bfloat16:
+        x = x.view(torch.bfloat16)
     return x.to(like.device, like.dtype)
 
 
@@ -204,9 +209,12 @@ def all_gather_rows(mesh: Optional[Mesh], x: torch.Tensor) -> torch.Tensor:
 
 def sum_over_ranks(mesh: Optional[Mesh], x: torch.Tensor) -> torch.Tensor:
     """The sum of every rank's x, added in rank order, the same bits on
-    every rank (not differentiable; `all_reduce_sum` is)."""
+    every rank (not differentiable; `all_reduce_sum` is). bfloat16, which
+    moves as its bytes, is not summed."""
     if mesh is None:
         return x
+    if x.dtype == torch.bfloat16:
+        raise TypeError("sum_over_ranks: cast bfloat16 to float32 before summing")
     src = _out(mesh, x)
     parts = [torch.empty_like(src) for _ in range(mesh.world)]
     dist.all_gather(parts, src, group=mesh.group)
@@ -244,7 +252,7 @@ def all_to_all_rows(mesh: Mesh, x: torch.Tensor, send_counts, recv_counts) -> to
     send_counts = [int(c) for c in send_counts]
     recv_counts = [int(c) for c in recv_counts]
     src = _out(mesh, x)
-    out = torch.empty((sum(recv_counts), *x.shape[1:]), dtype=src.dtype, device=src.device)
+    out = torch.empty((sum(recv_counts), *src.shape[1:]), dtype=src.dtype, device=src.device)
     dist.all_to_all_single(out, src, recv_counts, send_counts, group=mesh.group)
     return _back(out, x)
 

@@ -27,9 +27,10 @@ j // (size / n). The per-slot scalars, poses and actions (every other
 field, a few hundred bytes a slot) are replicated, so that every rank
 runs the ring rule and the next-state and episode-end lookups itself.
 `add_episodes` gathers every rank's masks and small fields and sends
-each rank the point rows its slots take (`all_to_all_rows`); `sample`
-draws the global indices on every rank alike, keeps this rank's B / n
-and fetches their points from the ranks that own them.
+each rank the point rows and frames its slots take (`all_to_all_rows`);
+`sample` draws the global indices on every rank alike, keeps this rank's
+B / n and fetches their points and frames (and next ones) from the
+ranks that own them, the bfloat16 frames as their bytes.
 `gather_buffer` returns the whole ring.
 """
 
@@ -353,15 +354,17 @@ def sample(buf: ReplayBuffer, batch_size: int, episode_max_len: int = 20,
         idx = torch.as_tensor(idx).to(dev, torch.int64)
     nxt_all = torch.minimum(buf.episode_map[idx], idx + 1)
     mine = local_slice(mesh, idx.shape[0])
+    fields = ["point_state"]
+    if buf.image_state.shape[-1] > 1:  # image storage enabled
+        fields.append("image_state")
     if mesh is None:
-        point_rows, next_point_rows = buf.point_state[idx], buf.point_state[nxt_all]
+        rows = {k: (getattr(buf, k)[idx], getattr(buf, k)[nxt_all]) for k in fields}
     else:
         # the global idx and nxt of every rank's rows, fetched from their owners
         n = mesh.world
         want = np.concatenate([idx.cpu().numpy().reshape(n, -1),
                                nxt_all.cpu().numpy().reshape(n, -1)], axis=1)
-        both = _fetch_rows(buf, buf.point_state, want)
-        point_rows, next_point_rows = both.chunk(2)
+        rows = {k: _fetch_rows(buf, getattr(buf, k), want).chunk(2) for k in fields}
     idx, nxt = idx[mine], nxt_all[mine]
     ep_end = buf.episode_map[idx]
 
@@ -377,15 +380,13 @@ def sample(buf: ReplayBuffer, batch_size: int, episode_max_len: int = 20,
         next_goal = torch.where(mask, pack_pose_rot_first(rel_n), next_goal)
 
     out = {}
-    if buf.image_state.shape[-1] > 1:  # image storage enabled
-        if mesh is not None:
-            raise NotImplementedError("image mode under a data-parallel mesh is not ported yet "
-                                      "(ROADMAP.md, Queue 1)")
-        out = {"image_state": buf.image_state[idx].to(torch.float32),
-               "next_image_state": buf.image_state[nxt].to(torch.float32)}
+    if "image_state" in rows:
+        frames, next_frames = rows["image_state"]
+        out = {"image_state": frames.to(torch.float32),
+               "next_image_state": next_frames.to(torch.float32)}
     out.update({
-        "point_state": point_rows,
-        "next_point_state": next_point_rows,
+        "point_state": rows["point_state"][0],
+        "next_point_state": rows["point_state"][1],
         "action": buf.action[idx],
         "expert_action": buf.expert_action[idx],
         "next_action": buf.action[nxt],

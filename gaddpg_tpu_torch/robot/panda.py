@@ -12,6 +12,13 @@ Kinematic parameters of the reference URDF
     joint6: rpy=(pi/2,0,0)           Rz(q6)
     joint7: t=(0.088,0,0)   rpy=(pi/2,0,0)   Rz(q7)
     hand:   t=(0,0,0.107)   Rz(-pi/4)                (fixed)
+    fingerL/R: t=(0,0,0.0584), prismatic +-y          (0..0.04)
+    camera: t=(0.036,0,0.036) rpy=(-pi/2,0,-pi/2)     (fixed)
+
+Every function takes joints q (..., 7) and broadcasts over the leading
+axes; `base` (..., 4, 4), where given, places the arm's base in the
+world (default: the identity). Callers on the card run them under
+`utils.precision.f32_matmuls`, as the rest of the geometry.
 
 The constants are float64 numpy arrays; `utils.constants.const` hands
 them out as float32 tensors on a device, as the JAX package casts them. The
@@ -81,6 +88,8 @@ _ORIGINS = np.stack(
     ]
 )
 _T_HAND = _rpy_t(0, 0, -np.pi / 4, 0, 0, 0.107)
+_T_FINGER = _rpy_t(0, 0, 0, 0, 0, 0.0584)
+_T_CAMERA = _rpy_t(-_HPI, 0, -_HPI, 0.036, 0, 0.036)
 
 # Full-arm collision skeleton: spheres at each inter-frame segment's
 # start and midpoint from link 1 through the hand, plus the hand origin
@@ -99,41 +108,90 @@ def _rz_h(q):
     return m.reshape(*q.shape, 4, 4)
 
 
-def _identity(q):
-    return torch.eye(4, dtype=q.dtype, device=q.device).expand(*q.shape[:-1], 4, 4)
+def _start(q, base=None):
+    """The chain's first frame: `base` (..., 4, 4) broadcast over q's
+    leading axes, or the identity."""
+    if base is None:
+        return torch.eye(4, dtype=q.dtype, device=q.device).expand(*q.shape[:-1], 4, 4)
+    return base.expand(*torch.broadcast_shapes(q.shape[:-1], base.shape[:-2]), 4, 4)
 
 
-def fk_all(q):
-    """All 8 frames (links 1..7 + hand) for arm joints q (..., 7):
-    (..., 8, 4, 4) in the base frame, which is the world frame."""
+def _joint_frames(q, base=None):
+    """The 7 joint frames after each joint's rotation, in order."""
     origins = const(_ORIGINS, q.device)
-    T = _identity(q)
+    T = _start(q, base)
     frames = []
     for i in range(7):
         T = T @ origins[i] @ _rz_h(q[..., i])
         frames.append(T)
-    frames.append(T @ const(_T_HAND, q.device))
+    return frames
+
+
+def fk_all(q, base=None):
+    """All 8 frames (links 1..7 + hand) for arm joints q (..., 7):
+    (..., 8, 4, 4) in the base frame, or in the world with `base`."""
+    frames = _joint_frames(q, base)
+    frames.append(frames[-1] @ const(_T_HAND, q.device))
     return torch.stack(frames, dim=-3)
 
 
-def fk_hand(q):
+def fk_hand(q, base=None):
     """Hand ("end-effector") frame only, (..., 4, 4)."""
-    origins = const(_ORIGINS, q.device)
-    T = _identity(q)
-    for i in range(7):
-        T = T @ origins[i] @ _rz_h(q[..., i])
-    return T @ const(_T_HAND, q.device)
+    return _joint_frames(q, base)[-1] @ const(_T_HAND, q.device)
 
 
-def arm_collision_points(q=None, frames=None):
+def fk_camera(q, base=None):
+    """Wrist camera frame (..., 4, 4): hand @ T_CAMERA."""
+    return fk_hand(q, base) @ const(_T_CAMERA, q.device)
+
+
+def fk_fingers(q, finger, base=None):
+    """Left and right fingertip frames (..., 2, 4, 4) for finger openings
+    (..., 2): finger 1 translates +y, finger 2 -y in the hand frame."""
+    tip = fk_hand(q, base) @ const(_T_FINGER, q.device)
+    shift = torch.zeros((*finger.shape[:-1], 2, 4, 4), dtype=q.dtype, device=q.device)
+    shift[..., 1, 3] = torch.stack([finger[..., 0], -finger[..., 1]], dim=-1)
+    shift = shift + torch.eye(4, dtype=q.dtype, device=q.device)
+    return tip[..., None, :, :] @ shift
+
+
+def hand_jacobian(q):
+    """(..., 6, 7) geometric Jacobian of the hand frame: the position rows
+    by forward-mode differentiation of `fk_hand` (`torch.func.jacfwd`, as
+    the JAX package's `jax.jacfwd`), the rotation rows the z axis of each
+    joint frame."""
+    def position(qq):
+        return fk_hand(qq)[:3, 3]
+
+    flat = q.reshape(-1, 7)
+    jp = torch.func.vmap(torch.func.jacfwd(position))(flat).reshape(*q.shape[:-1], 3, 7)
+    jr = torch.stack([T[..., :3, 2] for T in _joint_frames(q)], dim=-1)
+    return torch.cat([jp, jr], dim=-2)
+
+
+def arm_collision_points(q=None, base=None, frames=None):
     """(..., N, 3) world sphere centres along the arm skeleton (pair
-    with ARM_POINT_RADII (N,)), from joints q (..., 7) or from frames
-    (..., 8, 4, 4) that `fk_all` already gave (no second FK chain)."""
+    with ARM_POINT_RADII (N,)), from joints q (..., 7) (and `base`) or
+    from frames (..., 8, 4, 4) that `fk_all` already gave (no second FK
+    chain)."""
     if frames is None:
-        frames = fk_all(q)
+        frames = fk_all(q, base)
     starts = frames[..., :-1, :3, 3]                     # (..., 7, 3)
     ends = frames[..., 1:, :3, 3]
     ts = const(_ARM_SEG_TS, frames.device)[:, None]      # (T, 1)
     pts = starts[..., :, None, :] * (1.0 - ts) + ends[..., :, None, :] * ts
     pts = pts.reshape(*pts.shape[:-3], -1, 3)
     return torch.cat([pts, ends[..., -1:, :]], dim=-2)
+
+
+class PandaKinematics:
+    """The chain's constants and forward kinematics under one name."""
+
+    joint_lower = JOINT_LOWER
+    joint_upper = JOINT_UPPER
+    default_joints = DEFAULT_JOINTS
+    anchor_seeds = ANCHOR_SEEDS
+    fk_hand = staticmethod(fk_hand)
+    fk_all = staticmethod(fk_all)
+    fk_camera = staticmethod(fk_camera)
+    fk_fingers = staticmethod(fk_fingers)

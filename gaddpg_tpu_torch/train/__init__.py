@@ -5,7 +5,9 @@ of gaddpg_tpu/train/).
   / DAgger / DART branching as per-env masked selects), then a batched
   retract scores the lifts;
 - `Trainer`: collect -> replay insert on the device -> agent updates
-  sampled from the ring, with the schedules, checkpoints and metrics.
+  sampled from the ring, with the schedules, checkpoints and metrics;
+- `checkpoints`: the port's snapshots and the JAX package's `.msgpack`
+  ones (`flax_msgpack` decodes them).
 """
 
 from gaddpg_tpu_torch.train.config import TrainConfig, load_config

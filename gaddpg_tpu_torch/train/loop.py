@@ -46,15 +46,11 @@ class Trainer:
         states and takes batch_size / n rows of every update, while the
         agent state is replicated (built from cfg.seed on every rank and
         checked once against rank 0's). Rank 0 alone logs and writes
-        checkpoints. Image mode under a mesh raises NotImplementedError
-        (ROADMAP.md, Queue 1)."""
+        checkpoints. In image mode the ring's frames shard as its point
+        states do and the ResNet-18s' statistics are the global batch's."""
         validate_dp_divisibility(mesh, num_envs=cfg.num_envs, batch_size=cfg.batch_size,
                                  buffer_size=cfg.buffer_size)
         if mesh is not None:
-            if cfg.agent.use_image:
-                raise NotImplementedError(
-                    "image mode under a data-parallel mesh is not ported yet (ROADMAP.md, "
-                    "Queue 1: the ResNet-18's BatchNorms)")
             if cfg.onpolicy and cfg.online_buffer_size:
                 validate_dp_divisibility(mesh, online_buffer_size=cfg.online_buffer_size,
                                          online_rows=int(cfg.batch_size

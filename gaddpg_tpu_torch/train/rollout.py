@@ -56,9 +56,6 @@ class RolloutWorker:
 
     def __init__(self, env: PandaGraspEnv, agent_cfg, train_cfg, mesh=None, device="cuda"):
         validate_dp_divisibility(mesh, num_envs=train_cfg.num_envs)
-        if mesh is not None and agent_cfg.use_image:
-            raise NotImplementedError("image mode under a data-parallel mesh is not ported yet "
-                                      "(ROADMAP.md, Queue 1: the ResNet-18's BatchNorms)")
         self.device = resolve_device(device)
         if env.device != self.device:
             raise ValueError(f"env is on {env.device}, the rollout on {self.device}")

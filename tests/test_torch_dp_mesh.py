@@ -20,6 +20,13 @@ WORLD = 2
 LAUNCH_S = 60.0
 
 
+def _bf16_bits(rank):
+    """Rank `rank`'s bfloat16 rows of mesh_checks, as their int16 bits."""
+    from torch_dp_ranks import bf16_rows
+
+    return bf16_rows(rank).view(torch.int16).numpy()
+
+
 def _cpu_mesh(world, rank=0):
     """A mesh object for the checks that run before any collective."""
     return Mesh(world=world, rank=rank, device=torch.device("cpu"))
@@ -77,22 +84,24 @@ def test_trainer_rejects_indivisible_num_envs(monkeypatch):
         loop.Trainer(cfg, mesh=_cpu_mesh(8), device="cpu")
 
 
-def test_image_mode_under_a_mesh_is_not_ported():
-    from gaddpg_tpu_torch.train import loop
-    from gaddpg_tpu_torch.train.config import load_config
-
-    cfg = load_config(overrides={"use_image": True, "num_envs": 8, "batch_size": 8,
-                                 "buffer_size": 64}, policy="BC")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        loop.Trainer(cfg, mesh=_cpu_mesh(2), device="cpu")
-
-
 def test_all_reduce_sum_and_its_backward(checks):
     """y = sum_r x_r^2 with x_r = r + 1 on every rank; each rank's loss
     y . (0, 1, 2) sends every rank the summed cotangent back."""
     for r, c in enumerate(checks):
         np.testing.assert_array_equal(c["sum"], [5.0] * 3)
         np.testing.assert_array_equal(c["sum_grad"], 2.0 * (r + 1) * WORLD * np.arange(3.0))
+
+
+def test_bfloat16_moves_as_bytes(checks):
+    """bfloat16 rows (the ring's frames) gathered and exchanged bit for
+    bit, -0.0, infinities and subnormals included; a bfloat16 sum is
+    refused."""
+    for q, c in enumerate(checks):
+        want = [_bf16_bits(r) for r in range(WORLD)]
+        np.testing.assert_array_equal(c["bf16_gather"], np.concatenate(want))
+        np.testing.assert_array_equal(c["bf16_all_to_all"],
+                                      np.concatenate([w[q:q + 1] for w in want]))
+        assert "bfloat16" in c["bf16_sum"]
 
 
 def test_rows_move_between_ranks(checks):

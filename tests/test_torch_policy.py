@@ -283,7 +283,7 @@ for m in pkgutil.walk_packages(gaddpg_tpu_torch.__path__, "gaddpg_tpu_torch."):
     importlib.import_module(m.name)
 import chip_smoke
 bad = sorted(n for n in sys.modules
-             if n.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "gaddpg_tpu"))
+             if n.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "gaddpg_tpu", "msgpack"))
 raised = {}
 import torch
 from gaddpg_tpu_torch.agents import (
@@ -311,7 +311,8 @@ print(json.dumps({"bad": bad, "cuda": torch.cuda.is_available(), "raised": raise
 
 def test_port_imports_no_jax_and_cuda_entry_points_raise():
     """In a fresh interpreter: every module of the port and chip_smoke
-    import without JAX, Flax, Optax or the JAX package; the entry points,
+    import without JAX, Flax, Optax, msgpack or the JAX package (the
+    reader of JAX checkpoints and the mesh among them); the entry points,
     the learner's updates and the env included, default to CUDA and raise
     where there is none."""
     env = dict(os.environ, PYTHONPATH=REPO)
@@ -326,7 +327,8 @@ def test_port_imports_no_jax_and_cuda_entry_points_raise():
                 "geometry.rotations", "utils.precision", "geometry.se3", "robot.panda",
                 "robot.ik", "physics.types", "physics.contact", "physics.fast",
                 "ops.contact_scan", "render.camera", "render.pointcloud", "envs.assets",
-                "envs.grasp_env", "expert.goals", "expert.servo"):
+                "envs.grasp_env", "expert.goals", "expert.servo", "train.flax_msgpack",
+                "train.checkpoints", "parallel.mesh"):
         assert f"gaddpg_tpu_torch.{mod}" in res["modules"]
     if not res["cuda"]:
         for name, msg in res["raised"].items():

@@ -23,6 +23,7 @@ the expert episode end (t >= plan_len + 3) lies past the 4-step horizon.
 """
 
 import dataclasses
+import os
 
 import flax
 import jax
@@ -42,6 +43,7 @@ from gaddpg_tpu.render.camera import CameraParams as JaxCameraParams
 from gaddpg_tpu.train import config as jax_config
 from gaddpg_tpu.train import schedules as jax_schedules
 from gaddpg_tpu.train.rollout import RolloutWorker as JaxRolloutWorker
+import gaddpg_tpu_torch
 from gaddpg_tpu_torch.agents import AgentConfig, from_flax
 from gaddpg_tpu_torch.envs.assets import LIBRARY_FIELDS, box_asset, library_from_arrays
 from gaddpg_tpu_torch.envs.grasp_env import EnvParams, Observation, PandaGraspEnv
@@ -455,17 +457,22 @@ def test_trainer_evaluate(trainer):
 
 
 def test_unported_options_raise(tmp_path):
-    """A mesh is ported (tests/test_torch_dp_*.py); image mode under one is
-    not, and says so before anything is built."""
+    """No option of the JAX package's loop is left to raise: a mesh and
+    image mode under it are ported (tests/test_torch_dp_*.py), so a
+    RolloutWorker takes an image agent on a mesh's env, and no module of
+    the port raises NotImplementedError for an unported option."""
     lib = box_asset(0.06, 0.06, 0.14)
     mesh = Mesh(world=2, rank=0, device=torch.device("cpu"))
     cfg = dryrun_config(tmp_path)
     image_cfg = dataclasses.replace(cfg, agent=dataclasses.replace(cfg.agent, use_image=True))
-    with pytest.raises(NotImplementedError, match="mesh"):
-        Trainer(image_cfg, lib=lib, mesh=mesh, device="cpu")
+    env = PandaGraspEnv(cfg.env, lib, device="cpu", mesh=mesh)
+    worker = RolloutWorker(env, image_cfg.agent, cfg, mesh=mesh, device="cpu")
+    assert worker.agent_cfg.use_image and worker.num_envs == cfg.num_envs // 2
+    package = os.path.dirname(gaddpg_tpu_torch.__file__)
+    raising = [os.path.join(d, f) for d, _, files in os.walk(package) for f in files
+               if f.endswith(".py") and "NotImplementedError" in open(os.path.join(d, f)).read()]
+    assert raising == []
     tr = Trainer(cfg, lib=lib, device="cpu")
-    with pytest.raises(NotImplementedError, match="mesh"):
-        RolloutWorker(tr.env, image_cfg.agent, tr.cfg, mesh=mesh, device="cpu")
     # image mode is ported (tests/test_torch_image_agent.py)
     worker = RolloutWorker(tr.env, dataclasses.replace(tr.cfg.agent, use_image=True), tr.cfg,
                            device="cpu")

@@ -52,7 +52,24 @@ def mesh_checks(mesh):
         out["replicate_check"] = str(e)
     out["draw"] = _np(mesh_lib.draw_rows(
         mesh, lambda s: torch.rand(s, generator=torch.Generator().manual_seed(0)), (2, 3)))
+    # bfloat16 moves as its bytes: row q of this rank's rows goes to rank q
+    rows = bf16_rows(mesh.rank)
+    out["bf16_gather"] = _np(mesh_lib.all_gather_rows(mesh, rows).view(torch.int16))
+    out["bf16_all_to_all"] = _np(mesh_lib.all_to_all_rows(
+        mesh, rows[:mesh.world], [1] * mesh.world, [1] * mesh.world).view(torch.int16))
+    try:
+        mesh_lib.sum_over_ranks(mesh, rows)
+    except TypeError as e:
+        out["bf16_sum"] = str(e)
     return out
+
+
+def bf16_rows(rank):
+    """(4, 3) bfloat16 rows with bit patterns a float round trip could
+    change: -0.0, infinities, a subnormal, values of every rank's own."""
+    bits = torch.tensor([[-32768, 0x7f80, -128], [0x0001, 0x3f80 + rank, 0x4049],
+                         [0x0100 + rank, -16512, 0x7f7f], [rank, 1, 2]], dtype=torch.int16)
+    return bits.view(torch.bfloat16)
 
 
 def raise_on_one(mesh):
@@ -196,3 +213,75 @@ def restore_and_evaluate_rank(mesh, sizes, output_dir, snapshot_dir, scenes):
     expert, _ = tr.evaluate(episodes=1, scenes=scenes, expert=True)
     return ([_np(t) for t in state_tensors(tr.agent_state)], state_counts(tr.agent_state),
             policy, expert)
+
+
+# -- image mode --------------------------------------------------------------------
+
+def image_feature_rank(mesh, arrays, reduce=True, world=1):
+    """This rank's rows of `arrays["image"]` (and "action") through both
+    encoders of an ImageFeature holding the seeded weights of
+    `arrays["seed"]` (torch_image_common.random_resnet), train forward,
+    the statistics over every rank's rows (or, with reduce=False, this
+    rank's alone). Returns each path's output, its statistics, and the
+    gradients of sum(output^2) in the image rows and in the parameters
+    (this rank's share). With mesh None, `world` rank shares of the
+    image run one after another in this process (the one-rank
+    reference is world=1)."""
+    from gaddpg_tpu_torch.models import ImageFeature
+    from torch_image_common import random_resnet
+
+    feat = ImageFeature()
+    feat.encoder = random_resnet(arrays["seed"])
+    feat.value_encoder = random_resnet(arrays["seed"] + 1)
+    m = mesh if reduce else None
+    out = {}
+    for path, kw in (("policy", {}), ("value", {"value": True})):
+        img = _local(mesh, arrays["image"]).requires_grad_()
+        if kw:
+            kw = {"value": True, "action": _local(mesh, arrays["action"])}
+        y, stats = feat(img, train=True, mesh=m, **kw)
+        params = [p for p in (feat.value_encoder if kw else feat.encoder).parameters()]
+        grads = torch.autograd.grad((y * y).sum(), [img] + params)
+        out[path] = {"out": _np(y), "stats": [(_np(a), _np(b)) for a, b in stats],
+                     "grads": [_np(g) for g in grads]}
+    return out
+
+
+def image_trainer_rank(mesh, sizes, output_dir):
+    """One image-mode Trainer iteration (use_image, domain_rand, a 32 x 32
+    camera) at the fast dry-run tier's sizes for `sizes` ranks, on this
+    mesh (one rank: mesh None): collect, the gathered ring, one update,
+    then one evaluation wave of the policy. -> as `trainer_rank`, the
+    ring's frames as float32, then the evaluation's success rate."""
+    import dataclasses
+
+    from gaddpg_tpu_torch.agents.state import state_tensors
+    from gaddpg_tpu_torch.parallel.dryrun import tier_config, tier_library
+    from gaddpg_tpu_torch.replay.buffer import gather_buffer
+    from gaddpg_tpu_torch.train.loop import Trainer
+    from torch_image_common import S
+
+    cfg = tier_config(sizes, output_dir)
+    cfg = dataclasses.replace(
+        cfg, env=dataclasses.replace(cfg.env, use_image=True, domain_rand=True),
+        agent=dataclasses.replace(cfg.agent, use_image=True, image_size=S))
+    tr = Trainer(cfg, lib=tier_library(False), mesh=mesh, device="cpu")
+    roll = tr.collect()
+    ring = {k: _np(v.float() if v.dtype == torch.bfloat16 else v)
+            for k, v in gather_buffer(tr.buffer).items()}
+    metrics = tr.train_iter()
+    rate, _ = tr.evaluate(episodes=1)
+    return (roll, ring, metrics, tr.update_step, [_np(t) for t in state_tensors(tr.agent_state)],
+            tr.buffer.image_state.shape[0], rate)
+
+
+def image_update_rank(mesh, kind, cfg_kw, state_kw, batch, noise, stage_sizes):
+    """`update_rank` for an image agent whose ResNets have `stage_sizes`
+    blocks a stage (torch_image_common.SHALLOW in the update tests; the
+    JAX side is built at the same depth)."""
+    import functools
+
+    from gaddpg_tpu_torch.models import resnet
+
+    resnet.ResNet18Feature = functools.partial(resnet.ResNet18Feature, stage_sizes=stage_sizes)
+    return update_rank(mesh, kind, cfg_kw, state_kw, batch, noise)
